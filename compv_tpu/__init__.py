@@ -1,7 +1,7 @@
-"""compv_tpu — a TPU-native computer-vision / SLAM-SfM framework.
+"""compv_tpu — a JAX computer-vision / SLAM-SfM framework.
 
-Brand-new JAX/XLA/Pallas implementation of the capability set of the CompV
-reference library (/root/reference, surveyed in SURVEY.md): image pipeline,
+Brand-new JAX/XLA implementation of the capability set of the CompV
+reference library (surveyed in SURVEY.md): image pipeline,
 feature detection & description, matching, robust estimation, camera
 calibration, dense linear algebra, ML, and a distributed (multi-chip /
 multi-host) SfM layer that the single-node reference never had.
@@ -13,7 +13,8 @@ Design stance (SURVEY.md §7):
     (replaces CompVCaps set/get-by-id, base/include/compv/base/compv_caps.h).
   * variable-size outputs (keypoints, matches, lines) are fixed-capacity
     padded pytrees with validity masks — static shapes for XLA.
-  * hot kernels are Pallas; everything else is vanilla jitted jnp.
+  * every kernel is jitted jnp/lax; a hand-written GPU kernel joins only
+    where a trace on the card calls for one.
   * parallelism is jax.sharding Mesh + shard_map (replaces the thread pool,
     base/parallel/compv_threaddisp11.cxx).
 """
@@ -40,7 +41,7 @@ def init(num_threads: int | None = None) -> None:
     """Framework bring-up, analogous to CompVInit()
     (api/include/compv/compv_api.h:126-146).
 
-    On TPU there is nothing to initialize eagerly — XLA owns threads, memory
+    There is nothing to initialize eagerly — XLA owns threads, memory
     and device state — so this only exists for API familiarity. ``num_threads``
     is accepted and ignored (XLA manages host threading).
     """

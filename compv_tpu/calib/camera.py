@@ -1,4 +1,4 @@
-"""Zhang camera calibration, TPU-native.
+"""Zhang camera calibration.
 
 Reference: CompVCalibCamera (core/calib/compv_core_calib_camera.cxx):
 per-frame process() finds checkerboard corners (Canny -> Hough -> line
@@ -24,6 +24,7 @@ from compv_tpu.calib.homography import compute_homography_dlt
 from compv_tpu.calib.lm import LMConfig, levenberg_marquardt
 from compv_tpu.calib.utils import project_points_dist, reproj_error_rms
 from compv_tpu.slam.ba import matrix_to_rodrigues, rodrigues_to_matrix
+from compv_tpu.precision import geometry
 
 __all__ = ["CalibrationConfig", "CalibrationResult", "calibrate_camera",
            "intrinsics_from_homographies", "extrinsics_from_homography",
@@ -70,6 +71,7 @@ def _v_row(h: jax.Array, i: int, j: int) -> jax.Array:
     ])
 
 
+@geometry
 def intrinsics_from_homographies(hs: jax.Array) -> jax.Array:
     """(P, 3, 3) homographies -> (3, 3) K, closed form (Burger Alg 4.4,
     calib_camera.cxx:531-560). Needs P >= 3 (or >=2 with zero skew)."""
@@ -96,6 +98,7 @@ def intrinsics_from_homographies(hs: jax.Array) -> jax.Array:
         .at[0, 2].set(u0).at[1, 1].set(beta).at[1, 2].set(v0)
 
 
+@geometry
 def extrinsics_from_homography(h: jax.Array, k: jax.Array):
     """R|t of a plane from its homography (calib_camera.cxx per-view R|t):
     r1 = lam K^-1 h1, r2 = lam K^-1 h2, r3 = r1 x r2, t = lam K^-1 h3;
@@ -148,6 +151,7 @@ def _radial_lsq(obj_pts, img_pts_list, k, rvecs, tvecs):
     return sol
 
 
+@geometry
 def calibrate_camera(obj_pts: jax.Array, img_pts: jax.Array,
                      config: CalibrationConfig = CalibrationConfig()
                      ) -> CalibrationResult:

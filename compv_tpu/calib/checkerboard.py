@@ -5,7 +5,7 @@ Canny -> Hough -> prune weak lines -> split into horizontal/vertical
 families -> group/merge into pattern lines -> intersections -> ordered
 corner grid.
 
-TPU redesign: Hough SHT peaks are clustered into the two dominant theta
+Design: Hough SHT peaks are clustered into the two dominant theta
 families with a fixed-capacity merge (lines within merge_rho of each other
 collapse, strongest wins); intersections are a closed-form batched solve.
 Corners come out ordered (row-major by the 'horizontal' family rho, then by
@@ -23,6 +23,7 @@ import numpy as np
 from compv_tpu.core.types import Lines
 from compv_tpu.features.canny import CannyConfig, canny
 from compv_tpu.features.hough import HoughShtConfig, hough_sht
+from compv_tpu.precision import geometry
 
 __all__ = ["CheckerboardConfig", "CheckerboardResult", "find_chessboard_corners",
            "line_intersections"]
@@ -47,6 +48,7 @@ class CheckerboardResult(NamedTuple):
     v_lines: Lines
 
 
+@geometry
 def line_intersections(rho1, theta1, rho2, theta2):
     """Intersection of x cos(t1) + y sin(t1) = r1 with the t2/r2 line.
     Batched over any leading shape."""
@@ -102,6 +104,7 @@ def _select_family(lines: Lines, theta_center, tol: float, count: int,
     return rhos[order], thetas[order], n
 
 
+@geometry
 def find_chessboard_corners(img: jax.Array,
                             config: CheckerboardConfig = CheckerboardConfig()
                             ) -> CheckerboardResult:

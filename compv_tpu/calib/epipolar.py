@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 
 from compv_tpu.math.stats import hartley_normalize
+from compv_tpu.precision import geometry
 
 __all__ = ["EssentialConfig", "EssentialResult", "compute_fundamental_8pt",
            "find_essential", "decompose_essential", "triangulate_points",
@@ -63,6 +64,7 @@ def _eight_point(src: jax.Array, dst: jax.Array,
     return t_d.T @ f @ t_s
 
 
+@geometry
 def compute_fundamental_8pt(src: jax.Array, dst: jax.Array,
                             mask: jax.Array | None = None) -> jax.Array:
     return _eight_point(src, dst, mask)
@@ -74,6 +76,7 @@ def _essential_from_f(f: jax.Array) -> jax.Array:
     return u @ jnp.diag(jnp.asarray([1.0, 1.0, 0.0], f.dtype)) @ vt
 
 
+@geometry
 def sampson_error(e: jax.Array, src: jax.Array, dst: jax.Array) -> jax.Array:
     """First-order geometric (Sampson) error per correspondence."""
     ones = jnp.ones((src.shape[0], 1), src.dtype)
@@ -86,6 +89,7 @@ def sampson_error(e: jax.Array, src: jax.Array, dst: jax.Array) -> jax.Array:
     return num / jnp.maximum(den, 1e-18)
 
 
+@geometry
 def triangulate_points(r: jax.Array, t: jax.Array, src: jax.Array,
                        dst: jax.Array) -> jax.Array:
     """Linear (DLT) triangulation in normalized coords: cam1 = [I|0],
@@ -109,6 +113,7 @@ def triangulate_points(r: jax.Array, t: jax.Array, src: jax.Array,
     return jax.vmap(one)(src, dst)
 
 
+@geometry
 def decompose_essential(e: jax.Array, src: jax.Array, dst: jax.Array,
                         mask: jax.Array):
     """E -> (R, t) with the cheirality test over the 4 candidates (most
@@ -147,6 +152,7 @@ def decompose_essential(e: jax.Array, src: jax.Array, dst: jax.Array,
 
 
 @partial(jax.jit, static_argnames=("config",))
+@geometry
 def find_essential(src_px: jax.Array, dst_px: jax.Array, k: jax.Array,
                    mask: jax.Array | None = None,
                    config: EssentialConfig = EssentialConfig()

@@ -9,14 +9,14 @@ normalization -> 2Nx9 DLT matrix (buildHomographyEqMatrix,
 base/math/compv_math_matrix.cxx:1051) -> MtM -> Jacobi eigen smallest
 eigenvector -> denormalize -> h22-normalize.
 
-TPU redesign (SURVEY.md §2.6 item 5): instead of thread-racing sequential
+Design (SURVEY.md §2.6 item 5): instead of thread-racing sequential
 chains, ALL hypotheses are evaluated at once — sample (S, 4) point subsets
 with jax.random, solve each 4-point system in CLOSED FORM (projective-basis
-construction, _h_from_quad — r5: the vmapped 9x9 eigh it replaces measured
-~8 ms/frame at S=512), score all S x N transfer errors as one batched
+construction, _h_from_quad — cheaper than a vmapped 9x9 eigh per
+hypothesis), score all S x N transfer errors as one batched
 einsum, argmax inliers. The adaptive-budget while_loop is unnecessary at
 S≈512 hypotheses (p=0.995 needs ~72 iters at 50% inliers); a fixed S both
-saturates the VPU/MXU and keeps shapes static. The final all-inlier refine
+fills the device and keeps shapes static. The final all-inlier refine
 keeps the normalized DLT (one eigh; jnp.linalg.eigh is XLA-native and
 replaces the reference's Jacobi port).
 """
@@ -31,6 +31,7 @@ import jax.numpy as jnp
 
 from compv_tpu.math.stats import hartley_normalize
 from compv_tpu.math.transform import apply_homography
+from compv_tpu.precision import geometry
 
 __all__ = ["HomographyConfig", "HomographyResult", "compute_homography_dlt",
            "find_homography", "symmetric_transfer_error"]
@@ -63,6 +64,7 @@ def _dlt_rows(src: jax.Array, dst: jax.Array) -> jax.Array:
     return jnp.concatenate([r1, r2], axis=0)  # (2N, 9)
 
 
+@geometry
 def compute_homography_dlt(src: jax.Array, dst: jax.Array,
                            mask: jax.Array | None = None) -> jax.Array:
     """Normalized DLT: returns (3,3) H with H[2,2]=1 mapping src->dst.
@@ -138,6 +140,7 @@ def _h_from_quad(src4: jax.Array, dst4: jax.Array) -> jax.Array:
     return h / h22
 
 
+@geometry
 def symmetric_transfer_error(h: jax.Array, src: jax.Array, dst: jax.Array
                              ) -> jax.Array:
     """Per-point d(H src, dst)^2 + d(H^-1 dst, src)^2 (countInliers,
@@ -182,6 +185,7 @@ def _quad_nondegenerate(p4: jax.Array) -> jax.Array:
 
 
 @partial(jax.jit, static_argnames=("config",))
+@geometry
 def find_homography(src: jax.Array, dst: jax.Array,
                     mask: jax.Array | None = None,
                     config: HomographyConfig = HomographyConfig()

@@ -14,6 +14,7 @@ from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
+from compv_tpu.precision import geometry
 
 __all__ = ["LMConfig", "LMResult", "levenberg_marquardt"]
 
@@ -33,6 +34,7 @@ class LMResult(NamedTuple):
     initial_cost: jax.Array
 
 
+@geometry
 def levenberg_marquardt(residual_fn: Callable[[jax.Array], jax.Array],
                         x0: jax.Array,
                         config: LMConfig = LMConfig()) -> LMResult:

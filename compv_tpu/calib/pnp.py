@@ -6,7 +6,7 @@ compv_core_calib_camera.cxx:169-640); required by the SfM pipeline that
 produces BASELINE.json's ATE metric — every frame after the essential-
 matrix bootstrap is registered against the triangulated map with PnP.
 
-TPU design mirrors calib/homography.py: every RANSAC hypothesis is a
+The design mirrors calib/homography.py: every RANSAC hypothesis is a
 6-point DLT solved by one vmapped 12x12 eigh (batched on device, no
 data-dependent loop), scored with a single batched reprojection, then a
 short fixed-iteration Gauss-Newton polish on (rvec, tvec) using jax.jacfwd
@@ -23,6 +23,7 @@ import jax.numpy as jnp
 
 from compv_tpu.calib.homography import _masked_sample_idx
 from compv_tpu.slam.ba import matrix_to_rodrigues, rodrigues_to_matrix
+from compv_tpu.precision import geometry
 
 __all__ = ["PnpConfig", "PnpResult", "pnp_dlt", "solve_pnp"]
 
@@ -53,6 +54,7 @@ def _project_norm(rvec: jax.Array, tvec: jax.Array, pts3d: jax.Array
     return pc[:, :2] / z[:, None]
 
 
+@geometry
 def pnp_dlt(pts3d: jax.Array, pts2d_norm: jax.Array,
             mask: jax.Array | None = None):
     """Direct linear transform PnP: (N,3) world points + (N,2) NORMALIZED
@@ -112,6 +114,7 @@ def _refine_gn(rvec, tvec, pts3d, pts2d, weights, iterations: int):
 
 
 @partial(jax.jit, static_argnames=("config",))
+@geometry
 def solve_pnp(pts3d: jax.Array, pts2d_px: jax.Array, k: jax.Array,
               mask: jax.Array | None = None,
               config: PnpConfig = PnpConfig()) -> PnpResult:

@@ -4,7 +4,7 @@ Reference: CompVMathStatsRansac::process (base/math/compv_math_stats_ransac.cxx:
 — threads race a shared iteration budget with buildModelParams/buildResiduals
 callbacks; adaptive max-iteration from the inlier ratio (p=0.995).
 
-TPU redesign: all hypotheses at once. The user supplies
+Design: all hypotheses at once. The user supplies
   build_model(points_subset (k, d)) -> model pytree (vmapped over S)
   residuals(model, points (n, d)) -> (n,) residuals
 and gets the best model by inlier count. This serves line/parabola fitting
@@ -17,6 +17,7 @@ from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
+from compv_tpu.precision import geometry
 
 __all__ = ["RansacConfig", "RansacResult", "ransac"]
 
@@ -35,6 +36,7 @@ class RansacResult(NamedTuple):
     num_inliers: jax.Array
 
 
+@geometry
 def ransac(points: jax.Array, build_model: Callable, residuals: Callable,
            mask: jax.Array | None = None,
            config: RansacConfig = RansacConfig()) -> RansacResult:

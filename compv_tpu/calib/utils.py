@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from compv_tpu.image.remap import remap_bilinear
 from compv_tpu.slam.ba import rodrigues_to_matrix
+from compv_tpu.precision import geometry
 
 __all__ = ["project_points_dist", "distort_normalized", "reproj_error_rms",
            "build_undistort_map", "undistort_image", "undistort_points"]
@@ -30,6 +31,7 @@ def distort_normalized(xn: jax.Array, yn: jax.Array, dist: jax.Array):
     return xd, yd
 
 
+@geometry
 def project_points_dist(pts3d: jax.Array, k: jax.Array, dist: jax.Array,
                         rvec: jax.Array, tvec: jax.Array) -> jax.Array:
     """(N,3) world points -> (N,2) pixels through K, distortion, R|t
@@ -57,6 +59,7 @@ def reproj_error_rms(observed: jax.Array, projected: jax.Array,
     return jnp.sqrt(jnp.mean(d2))
 
 
+@geometry
 def build_undistort_map(k: jax.Array, dist: jax.Array, height: int, width: int):
     """Maps for remap-based undistortion (reference initUndistMap,
     compv_core_calib_utils.cxx:363): for each *undistorted* output pixel,
@@ -81,6 +84,7 @@ def undistort_image(img: jax.Array, k: jax.Array, dist: jax.Array) -> jax.Array:
     return remap_bilinear(img, mx, my)
 
 
+@geometry
 def undistort_points(pts: jax.Array, k: jax.Array, dist: jax.Array,
                      iterations: int = 8) -> jax.Array:
     """Iteratively invert the distortion for (N,2) pixel points (fixed-point

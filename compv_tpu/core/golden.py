@@ -2,7 +2,7 @@
 
 The reference proves kernel-variant agreement with golden scalars — corner
 count / Σstrength / Σx / Σy tables (unittests/feature_fast.cxx:18-60) and MD5
-of output buffers (tests/tests_common.cxx:98-116). On TPU the analogue is a
+of output buffers (tests/tests_common.cxx:98-116). Here the analogue is a
 quantized checksum that is stable across compilers/backends at a stated
 tolerance, plus exact integer checksums for integer outputs.
 """

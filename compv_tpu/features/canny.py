@@ -1,16 +1,16 @@
-"""Canny edge detector, TPU-native.
+"""Canny edge detector.
 
 Reference: CompVCornerDeteCanny (core/features/edges/compv_core_feature_canny_dete.cxx:123)
 — Sobel3x3 gx/gy (:237-238), L1 magnitude, thresholds (fixed / %-of-mean /
 otsu-derived, compv_features.h:80-81), sector-quantized NMS (:279), 8-conn
 hysteresis with row-band MT + overlap (:283).
 
-TPU redesign:
+Design:
   * Sobel + magnitude + NMS: dense fused elementwise program.
   * Hysteresis (intrinsically sequential queue-based in the reference):
     reformulated as iterative label propagation — strong |= weak & dilate3x3
     (strong) — inside a lax.while_loop until fixpoint. Converges in
-    O(longest weak chain) dilations; each iteration is one fused VPU pass.
+    O(longest weak chain) dilations; each iteration is one fused elementwise pass.
 """
 from __future__ import annotations
 

@@ -1,25 +1,20 @@
-"""Connected-component labeling + blob features, TPU-native.
+"""Connected-component labeling + blob features.
 
 Reference: CCL-LSL (core/ccl/compv_core_ccl_lsl.cxx:579 — Light Speed
 Labeling: RLE segments + sequential equivalence solving, with lazily
 computed features: boxes / moments / point extraction, lsl_result.cxx;
 result API base/include/compv/base/compv_ccl.h:141-156).
 
-TPU redesign — three staged solvers, cheapest first, all converging to the
-same fixed point (labels = min flat index per component):
+Two staged solvers, cheapest first, both converging to the same fixed
+point (labels = min flat index per component):
 
-  1. Pallas whole-image-in-VMEM neighbor-min iteration
-     (ops/pallas/ccl_kernel.py) — ~5 us per step at 1122x1182 on v5e, zero
-     HBM traffic per iteration. TPU only.
-  2. XLA segmented run-min sweeps: per iteration, a 4-diagonal min then
+  1. Segmented run-min sweeps: per iteration, a 4-diagonal min then
      whole-run min along rows and columns via lax.cummin with a monotone
      per-run offset (earlier/later runs get offsets >= n so the min never
-     leaks across background). Runs on CPU (tests) and as the TPU fallback
-     precursor.
-  3. Gather-based pointer jumping (label = labels[labels], log-depth) —
-     expensive on TPU (~7 ns/element gathers) but converges on pathological
-     inputs (long snakes) that defeat bounded local propagation; only
-     entered when stage 1/2 report non-convergence.
+     leaks across background).
+  2. Gather-based pointer jumping (label = labels[labels], log-depth) —
+     converges on pathological inputs (long snakes) that defeat bounded
+     local propagation; only entered when stage 1 reports non-convergence.
 
 Features are fixed-capacity: the top-`max_components` components by area,
 computed by per-component masked reductions in compact-id space.
@@ -33,16 +28,10 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
-from compv_tpu.ops.pallas.ccl_kernel import pallas_label
-
 __all__ = ["CclConfig", "CclResult", "label_components",
            "label_components_seeded", "ccl_features"]
 
-_PALLAS_CAP = 96     # convergence checks in the Pallas stage (2 steps each)
-_PALLAS_CAP_SEEDED = 256  # seeded (MSER ladder) cap: noisy flood levels
-                          # legitimately need ~114 cheap in-kernel iters,
-                          # far cheaper than the XLA pointer fallback
-_SWEEP_CAP = 12      # run-min sweep iterations in the XLA stage
+_SWEEP_CAP = 12      # run-min sweep iterations before pointer jumping
 
 
 @dataclass(frozen=True)
@@ -73,8 +62,8 @@ class CclResult(NamedTuple):
     valid: jax.Array        # (C,) bool
 
 
-# --------------------------------------------------------------- stage 2:
-# segmented run-min sweeps (pure XLA)
+# --------------------------------------------------------------- stage 1:
+# segmented run-min sweeps
 
 def _run_min(lbl, fg, axis, big):
     """Min over each maximal foreground run along `axis` — lax.cummin with
@@ -126,7 +115,7 @@ def _sweep_stage(lbl, fg, connectivity, big, cap):
     return lbl, ~changed
 
 
-# --------------------------------------------------------------- stage 3:
+# --------------------------------------------------------------- stage 2:
 # pointer jumping (gathers; log-depth; guaranteed convergence)
 
 def _neighbor_min(lbl, fg, connectivity, big):
@@ -164,6 +153,23 @@ def _pointer_stage(lbl, fg, connectivity, big, max_iterations):
     return lbl
 
 
+def _propagate(lbl, fg, connectivity, big, max_iterations):
+    """Run-min sweeps, then pointer jumping if they did not converge.
+    ``lbl`` holds a seed label at foreground pixels and ``big`` elsewhere;
+    returns the fixed point with -1 at background."""
+    h, w = lbl.shape
+    # the run-min offset trick needs n * (axis/2 + 2) in i32
+    if h * w * (max(h, w) // 2 + 2) < 2 ** 30:
+        lbl, converged = _sweep_stage(lbl, fg, connectivity, big, _SWEEP_CAP)
+    else:
+        converged = jnp.asarray(False)
+    lbl = jax.lax.cond(
+        converged, lambda l: l,
+        lambda l: _pointer_stage(l, fg, connectivity, big, max_iterations),
+        lbl)
+    return jnp.where(fg, lbl, -1)
+
+
 @partial(jax.jit, static_argnames=("connectivity", "max_iterations"))
 def label_components(binary: jax.Array, connectivity: int = 8,
                      max_iterations: int = 64) -> jax.Array:
@@ -172,37 +178,10 @@ def label_components(binary: jax.Array, connectivity: int = 8,
     h, w = binary.shape
     fg = binary > 0
     big = jnp.int32(h * w)
-
-    on_tpu = jax.default_backend() == "tpu"
-    # the run-min offset trick needs n * (axis/2 + 2) in i32
-    sweep_ok = h * w * (max(h, w) // 2 + 2) < 2 ** 30
-
-    if on_tpu:
-        raw, iters = pallas_label(binary, connectivity, _PALLAS_CAP)
-        converged = iters < _PALLAS_CAP
-        # common case: kernel output is final (-1 at bg) — keep the
-        # big-form conversion inside the rare unconverged branch only
-
-        def fixup(r):
-            l = jnp.where(fg, r, big)
-            l = _pointer_stage(l, fg, connectivity, big, max_iterations)
-            return jnp.where(fg, l, -1)
-
-        return jax.lax.cond(converged, lambda r: r, fixup, raw)
-
     idx = (jax.lax.broadcasted_iota(jnp.int32, (h, w), 0) * w
            + jax.lax.broadcasted_iota(jnp.int32, (h, w), 1))
-    lbl = jnp.where(fg, idx, big)
-    if sweep_ok:
-        lbl, converged = _sweep_stage(lbl, fg, connectivity, big,
-                                      _SWEEP_CAP)
-    else:
-        converged = jnp.asarray(False)
-    lbl = jax.lax.cond(
-        converged, lambda l: l,
-        lambda l: _pointer_stage(l, fg, connectivity, big, max_iterations),
-        lbl)
-    return jnp.where(fg, lbl, -1)
+    return _propagate(jnp.where(fg, idx, big), fg, connectivity, big,
+                      max_iterations)
 
 
 @partial(jax.jit, static_argnames=("connectivity", "max_iterations"))
@@ -218,41 +197,8 @@ def label_components_seeded(binary: jax.Array, init: jax.Array,
     h, w = binary.shape
     fg = binary > 0
     big = jnp.int32(h * w)
-
-    if jax.default_backend() == "tpu":
-        from compv_tpu.ops.pallas.ccl_kernel import pallas_label_seeded
-        # run-jumps matter here: MSER's high gray levels merge everything
-        # into image-spanning open regions whose diameter defeats plain
-        # neighbor-min. Jump dists are sized for NOISY floods (r5): with
-        # ~0.5% background holes a d=512 all-fg window almost never
-        # exists (0.995^512 ~ 8%) — the r4 (8, 64, 512) ladder left the
-        # flood level unconverged at cap 96 and paid the XLA
-        # pointer-jumping fallback (~40 ms/frame); (8, 32, 128) at cap
-        # 256 converges it in-kernel (152 iters at jump_every=3, ~4.8 ms
-        # — the rarer jumps repay themselves across the 48 quiet levels).
-        raw, iters = pallas_label_seeded(binary, init, connectivity,
-                                         _PALLAS_CAP_SEEDED, jump_every=3,
-                                         jump_dists=(8, 32, 128))
-        converged = iters < _PALLAS_CAP_SEEDED
-
-        def fixup(r):
-            l = jnp.where(fg, r, big)
-            l = _pointer_stage(l, fg, connectivity, big, max_iterations)
-            return jnp.where(fg, l, -1)
-
-        return jax.lax.cond(converged, lambda r: r, fixup, raw)
-
-    lbl = jnp.where(fg, init, big)
-    sweep_ok = h * w * (max(h, w) // 2 + 2) < 2 ** 30
-    if sweep_ok:
-        lbl, converged = _sweep_stage(lbl, fg, connectivity, big, _SWEEP_CAP)
-    else:
-        converged = jnp.asarray(False)
-    lbl = jax.lax.cond(
-        converged, lambda l: l,
-        lambda l: _pointer_stage(l, fg, connectivity, big, max_iterations),
-        lbl)
-    return jnp.where(fg, lbl, -1)
+    return _propagate(jnp.where(fg, init, big), fg, connectivity, big,
+                      max_iterations)
 
 
 # --------------------------------------------------------------- features
@@ -275,9 +221,8 @@ def _seg_stats_from_runs(label_key, x0, x1, y, w, h, c):
 
     All segmented reductions are cumsum/cummin passes with a monotone
     per-segment offset (segments = equal-label spans, ids from
-    cumsum(is_first)); the exact same trick _run_min uses for row sweeps.
-    No associative_scan (a (val, key) pair scan over pixel space measured
-    3.5 ms at 1.3M on v5e — offsets + cummin are ~10x cheaper)."""
+    cumsum(is_first)); the exact same trick _run_min uses for row sweeps,
+    and cheaper than a (value, key) pair associative_scan."""
     big = jnp.int32(1 << 30)
     r = label_key.shape[0]
     prev = jnp.pad(label_key, (1, 0), constant_values=-1)[:-1]
@@ -294,8 +239,7 @@ def _seg_stats_from_runs(label_key, x0, x1, y, w, h, c):
     # is bounded by R * (vmax >> s) and the lo cumsum by R * 2^s. The
     # per-component result is returned as f32(hi)*2^s + f32(lo) with both
     # parts exact, so the only rounding is the final f32 render
-    # (<= 2^-23 relative — the r4 pixel path's unbounded f32
-    # running-prefix drift is gone).
+    # (<= 2^-23 relative, no running-prefix drift).
     def psum(part):
         cs = jnp.cumsum(part)
         exc = jnp.pad(cs, (1, 0))[:-1]
@@ -335,8 +279,8 @@ def _seg_stats_from_runs(label_key, x0, x1, y, w, h, c):
     # ---- exact top-C by area: one small descending sort over R slots
     tkey = jnp.where(is_first, -area, big)
     slots = jnp.arange(r, dtype=jnp.int32)
-    tk_s, pos_s = jax.lax.sort([tkey, slots], num_keys=1,
-                               is_stable=False)
+    # (area, slot) keys: equal areas keep slot order on every backend
+    tk_s, pos_s = jax.lax.sort([tkey, slots], num_keys=2)
     kk = min(c, r)
     valid = jnp.pad(tk_s[:kk] < 0, (0, c - kk))
     pos = jnp.pad(pos_s[:kk], (0, c - kk))
@@ -361,9 +305,8 @@ def extract_runs(lbl: jax.Array, k: int):
     a run start needs bg on its left, so two adjacent columns can never
     both host one and min-combining pairs halves the sort width (ends
     fold symmetrically). Start keys pack (x << label_bits) | label into
-    one u32 so the sort carries no extra value arrays (359 us for one
-    (1182, 1122) 1-key row sort vs 1292 us carrying two values, v5e);
-    the k-th ascending end pairs with the k-th start, so ends sort as a
+    one u32 so the sort carries no extra value arrays; the k-th
+    ascending end pairs with the k-th start, so ends sort as a
     bare i32 key. Falls back to (x-key, label-value) 2-array sorting
     when label+x exceed 32 bits (images over ~2 MP at 4k widths)."""
     h, w = lbl.shape
@@ -427,10 +370,9 @@ def ccl_features_from_labels(lbl: jax.Array, config: CclConfig = CclConfig()
     compacted per row by short folded sorts (extract_runs), grouped by
     label with ONE small R = H*K-record sort, and reduced with segmented
     cumsum/cummin passes (~45k records on the reference's text-scan
-    benchmark vs the 1.3M pixels the r3/r4 pixel-sort formulation
-    processed — 6.5 ms -> sub-ms). Rows with more than
-    config.max_runs_per_row runs divert to the pixel path (exact,
-    capacity-free) under a lax.cond."""
+    benchmark vs the 1.3M pixels a pixel-sort formulation processes).
+    Rows with more than config.max_runs_per_row runs divert to the pixel
+    path (exact, capacity-free) under a lax.cond."""
     h, w = lbl.shape
     c = config.max_components
     kk = min(config.max_runs_per_row, -(-w // 2))
@@ -446,55 +388,37 @@ def ccl_features_from_labels(lbl: jax.Array, config: CclConfig = CclConfig()
     lb_bits = max(1, (h * w - 1).bit_length())
     x_bits = max(1, w.bit_length())
 
-    # the Pallas ragged compactor shrinks the record sort from H*K padded
-    # slots (3.4x slack at ~38 runs/row) to an 8-aligned concatenation —
-    # 43 us for the whole compaction at 1182x128 on v5e. TPU + packed-key
-    # sizes only; overflow of its capacity falls back like row overflow.
-    _CAP8 = 8192                       # 65536 records; (cap8, 8) i32 VMEM
-    use_compact = (jax.default_backend() == "tpu"
-                   and lb_bits + x_bits <= 32 and kk % 8 == 0)
-
-    def _stats_sorted_u32(ku, vs, lb_):
-        big = jnp.int32(1 << 30)
-        sentinel = ku == jnp.uint32(0xFFFFFFFF)
-        ks = jnp.where(sentinel, big, (ku >> x_bits).astype(jnp.int32))
-        x0s = jnp.where(sentinel, w,
-                        (ku & jnp.uint32((1 << x_bits) - 1))
-                        .astype(jnp.int32))
-        x1s, ys = vs % (w + 1), vs // (w + 1)
-        num, area, minx, miny, maxx, maxy, cx, cy, valid = \
-            _seg_stats_from_runs(ks, x0s, x1s, ys, w, h, c)
-        return CclResult(lb_, num, area, minx, miny, maxx, maxy, cx, cy,
-                         valid)
-
-    def _packed_key_val():
-        yy = jnp.broadcast_to(
-            jnp.arange(h, dtype=jnp.int32)[:, None], run_lbl.shape)
-        keyu = jnp.where(
-            run_lbl >= 0,
-            (run_lbl.astype(jnp.uint32) << x_bits)
-            | run_x0.astype(jnp.uint32),
-            jnp.uint32(0xFFFFFFFF))
-        # y*(w+1)+x1 < h*(w+1)+w < 2^31 always (labels need h*w < 2^30)
-        val = yy * (w + 1) + run_x1
-        return keyu, val
-
     def run_path(lb_):
         big = jnp.int32(1 << 30)
         if lb_bits + x_bits <= 32:
             # 2-array sort: u32 key (label << xb | x0) groups by label AND
-            # orders runs by x0 within a segment; value packs (y, x1)
-            keyu, val = _packed_key_val()
+            # orders runs by x0 within a segment; value packs (y, x1), and
+            # y*(w+1)+x1 < h*(w+1)+w < 2^31 always (labels need h*w < 2^30)
+            yy = jnp.broadcast_to(
+                jnp.arange(h, dtype=jnp.int32)[:, None], run_lbl.shape)
+            keyu = jnp.where(
+                run_lbl >= 0,
+                (run_lbl.astype(jnp.uint32) << x_bits)
+                | run_x0.astype(jnp.uint32),
+                jnp.uint32(0xFFFFFFFF))
+            val = yy * (w + 1) + run_x1
             ku, vs = jax.lax.sort([keyu.ravel(), val.ravel()], num_keys=1,
                                   is_stable=False)
-            return _stats_sorted_u32(ku, vs, lb_)
-        yy = jnp.broadcast_to(
-            jnp.arange(h, dtype=jnp.int32)[:, None], run_lbl.shape).ravel()
-        key = jnp.where(run_lbl >= 0, run_lbl, big).ravel()
-        x01 = (run_x0 * (w + 1) + run_x1).ravel()
-        ks, x01s, ys = jax.lax.sort([key, x01, yy], num_keys=1,
-                                    is_stable=False)
-        x0s, x1s = x01s // (w + 1), x01s % (w + 1)
+            sentinel = ku == jnp.uint32(0xFFFFFFFF)
+            ks = jnp.where(sentinel, big, (ku >> x_bits).astype(jnp.int32))
+            x0s = jnp.where(sentinel, w,
+                            (ku & jnp.uint32((1 << x_bits) - 1))
+                            .astype(jnp.int32))
+            x1s, ys = vs % (w + 1), vs // (w + 1)
+        else:
+            yy = jnp.broadcast_to(
+                jnp.arange(h, dtype=jnp.int32)[:, None],
+                run_lbl.shape).ravel()
+            key = jnp.where(run_lbl >= 0, run_lbl, big).ravel()
+            x01 = (run_x0 * (w + 1) + run_x1).ravel()
+            ks, x01s, ys = jax.lax.sort([key, x01, yy], num_keys=1,
+                                        is_stable=False)
+            x0s, x1s = x01s // (w + 1), x01s % (w + 1)
         num, area, minx, miny, maxx, maxy, cx, cy, valid = \
             _seg_stats_from_runs(ks, x0s, x1s, ys, w, h, c)
         return CclResult(lb_, num, area, minx, miny, maxx, maxy, cx, cy,
@@ -503,45 +427,23 @@ def ccl_features_from_labels(lbl: jax.Array, config: CclConfig = CclConfig()
     def pixel_path(lb_):
         return _ccl_features_pixels(lb_, config)
 
-    if use_compact:
-        from compv_tpu.ops.pallas.compact_kernel import compact_rows
-        keyu, val = _packed_key_val()
-        ka, vb, total, okc = compact_rows(
-            jax.lax.bitcast_convert_type(keyu, jnp.int32), val, counts,
-            cap8=_CAP8)
-        kuc = jax.lax.bitcast_convert_type(ka, jnp.uint32)
-        # slots >= the ragged total are uninitialized VMEM: sentinel them
-        kuc = jnp.where(jnp.arange(_CAP8 * 8) < total, kuc,
-                        jnp.uint32(0xFFFFFFFF))
-
-        def compact_path(lb_):
-            ku, vs = jax.lax.sort([kuc, vb], num_keys=1, is_stable=False)
-            return _stats_sorted_u32(ku, vs, lb_)
-
-        return jax.lax.cond(overflow | ~okc, pixel_path, compact_path, lbl)
-
     return jax.lax.cond(overflow, pixel_path, run_path, lbl)
 
 
 def _ccl_features_pixels(lbl: jax.Array, config: CclConfig) -> CclResult:
-    """Capacity-free pixel-sort extraction (r3/r4 formulation) — the
+    """Capacity-free pixel-sort extraction — the
     fallback when a row exceeds max_runs_per_row.
 
     ONE stable 1-key sort of [label, flat-index] plus cumsum/cummin
     passes and elementwise math; no scatters, data-dependent gathers, or
-    lax.top_k anywhere (scatter-min/max and top_k lower poorly on this
-    backend, and a sort over image-derived arrays is the one
-    irregular-grouping primitive that benchmarks dependably; see
-    ROOFLINE.md for the measurement methodology caveats).
+    lax.top_k anywhere.
 
     Per-component stats fall out of segment boundaries in sorted space:
     area/sum-x/sum-y as prefix-sum differences (int32-exact when
     n*max(w,h)/2 < 2^31, f32 otherwise), min/max-x via a segmented-min
     suffix scan keyed by the sorted labels, min-y free (label row), max-y
     from each segment's last slot (stable sort keeps raster order).
-    Top-`max_components` by area: exact descending sort over slot space
-    (r5 — replaced the windowed top-2 heuristic that could miss a
-    component when 3+ of the top-C shared one 64-slot window)."""
+    Top-`max_components` by area: exact descending sort over slot space."""
     h, w = lbl.shape
     n = h * w
     c = config.max_components
@@ -608,15 +510,12 @@ def _ccl_features_pixels(lbl: jax.Array, config: CclConfig) -> CclResult:
     nxt_l = jnp.concatenate([nxt_l[1:], lasty[-1:]])
     maxy = jnp.minimum(nxt_l, lasty[-1]) - exly - 1      # valid at is_first
 
-    # ---- top-C by area: exact one-key sort over slot space (r5: this is
-    # the rare fallback path — exactness beats the old windowed-top-2
-    # heuristic, which missed components when 3+ of the top-C landed in
-    # one 64-slot window)
+    # ---- top-C by area: exact sort over slot space, ties to the lower
+    # slot (this is the rare fallback path; exactness beats speed here)
     area_slots = jnp.where(is_first, area, 0).astype(jnp.float32)
     tkey = jnp.where(is_first, -area_slots, jnp.float32(jnp.inf))
     slot_ids = jnp.arange(n, dtype=jnp.int32)
-    neg_s, pos_s = jax.lax.sort([tkey, slot_ids], num_keys=1,
-                                is_stable=False)
+    neg_s, pos_s = jax.lax.sort([tkey, slot_ids], num_keys=2)
     kk = min(c, n)
     vals = jnp.pad(jnp.where(neg_s[:kk] < 0, -neg_s[:kk], 0.0), (0, c - kk))
     pos = jnp.pad(pos_s[:kk], (0, c - kk))

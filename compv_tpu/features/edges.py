@@ -2,7 +2,7 @@
 
 Reference: core/features/edges/compv_core_feature_edge_dete.cxx (259 LoC) —
 common separable-kernel edge detector producing |gx|+|gy| scaled to u8.
-TPU: two separable convs + fused elementwise; one XLA program.
+Two separable convs + fused elementwise; one XLA program.
 """
 from __future__ import annotations
 

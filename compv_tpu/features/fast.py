@@ -1,4 +1,4 @@
-"""FAST-9/12 corner detector, TPU-native.
+"""FAST-9/12 corner detector.
 
 Reference behavior (core/features/fast/compv_core_feature_fast_dete.cxx):
   * per pixel p with threshold t: brighter = sat(p+t), darker = sat(p-t);
@@ -13,11 +13,11 @@ Reference behavior (core/features/fast/compv_core_feature_fast_dete.cxx):
     interior [3, dim-3);
   * top-K by strength (selectBest, compv_common.h:641-656).
 
-TPU design: the scalar early-out pipeline becomes a dense vectorized
+Design: the scalar early-out pipeline becomes a dense vectorized
 computation over the whole image — 16 shifted views (static slices, no
 gather), running circular-window minima via a log-depth tree of rolls, NMS
 as 8 shifted maxes, top-K via lax.top_k. Everything fuses into a handful of
-VPU passes; a Pallas tiled variant lives in ops/pallas/fast_kernel.py.
+elementwise passes.
 
 Circle offset order matches the reference (fast_dete.cxx:221-238):
 index 0 at (dy=-3,dx=0) going clockwise.
@@ -54,8 +54,8 @@ class FastConfig:
     nms: bool = True
     max_features: int = 2000   # static output capacity; -1 in the reference
                                # means "all" — here capacity must be static
-    exact_topk: bool = False   # exact sort-based top-k (slow on TPU) vs
-                               # hardware approx_max_k (exact on CPU)
+    exact_topk: bool = False   # lax.top_k vs approx_max_k (which XLA
+                               # computes exactly on CPU and GPU)
 
 
 def _strengths_f32(img: jax.Array, threshold: int, n: int) -> jax.Array:
@@ -63,14 +63,14 @@ def _strengths_f32(img: jax.Array, threshold: int, n: int) -> jax.Array:
     the 3-px border, exactly like the reference's calloc'd map with +3
     borders (fast_dete.cxx:200-215).
 
-    Implementation notes (all measured on a v5e chip, 720p):
+    Implementation notes:
     * circle views and circular-window minima are kept as Python lists of
       (H, W) arrays — pure elementwise chains over slices of one padded
       buffer, which XLA fuses into a few passes. (A stacked (16, H, W)
-      tensor + jnp.roll formulation materializes every stage to HBM and
-      measured ~25x more memory traffic.)
-    * f32 lanes, not int16: the VPU is 32-bit native, int16 costs
-      pack/unpack (158 us -> 116 us per frame).
+      tensor + jnp.roll formulation materializes every stage in device
+      memory.)
+    * f32 arithmetic on exact small integers: every value is an integer
+      <= 255 in magnitude, so f32 is exact.
     * signed diffs with ONE final relu instead of 32 per-element
       max(x, 0) clamps. Bit-identical: positive diffs (<= 255) are exact,
       negative arc-minima stay negative and the final relu zeroes them —

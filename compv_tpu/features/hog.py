@@ -1,4 +1,4 @@
-"""HOG (R-HOG) dense descriptor, TPU-native.
+"""HOG (R-HOG) dense descriptor.
 
 Reference: CompVHogStd (core/features/hog/compv_core_feature_hog_std.cxx:196):
 gradX/gradY (GradientFast central difference) -> magnitude + direction
@@ -7,9 +7,9 @@ normalization none/L1/L1Sqrt/L2/L2Hys -> dense row-major descriptor.
 Params compv_features.h:105-120; defaults 8x8 cells, 2x2 blocks, stride 8,
 9 bins, L2Hys, gradient unsigned.
 
-TPU design: everything is dense reshapes + one-hot bin scatter expressed as
-a (pixels x bins) weighted sum via segment reshape — no loops, MXU/VPU
-friendly, batched over images with vmap.
+Design: everything is dense reshapes + one-hot bin scatter expressed as
+a (pixels x bins) weighted sum via segment reshape — no loops, batched
+over images with vmap.
 """
 from __future__ import annotations
 
@@ -75,9 +75,8 @@ def hog_descriptor(img: jax.Array, config: HogConfig = HogConfig()
     if config.interp == "bilinear_lut":
         # the reference's third mode: hog_std builds a quantized bilinear
         # LUT over the direction (compv_core_feature_hog_std.cxx) so the
-        # CPU pays one table read instead of a divide per pixel. On TPU a
-        # table read IS the expensive op (gather), so the same semantics
-        # are reproduced arithmetically: quantize the direction to
+        # CPU pays one table read instead of a divide per pixel. Here the
+        # same semantics are reproduced arithmetically, with no gather: quantize the direction to
         # lut_bins steps and vote bilinearly from the step's
         # representative angle — bit-identical to indexing a table built
         # from the same formula.

@@ -7,11 +7,11 @@ Reference:
   * KHT: core/features/hough/compv_core_feature_houghkht.cxx:208 — edge
     chains -> clusters -> per-cluster elliptical-Gaussian kernel votes.
 
-TPU redesign: the accumulator is a batched weighted bincount lowered to int8
-MXU matmuls (ops/bincount.py) — scatter-add measured ~60 ns/element on TPU,
-the matmul form is HBM-bandwidth bound. The per-thread clone+merge
-disappears (the matmul reduction IS the merge, bit-deterministic). Edge
-pixels live in a fixed-capacity padded list. The KHT variant keeps the
+Design: the accumulator is one integer scatter-add of every (theta, rho)
+vote; integer addition is associative, so the result is exact and
+deterministic whatever order the device applies the votes in, and the
+reference's per-thread clone + merge disappears. Edge pixels live in a
+fixed-capacity padded list. The KHT variant keeps the
 *voting model* (votes weighted by local line support) but replaces
 sequential cluster linking with per-pixel orientation-coherence weights — a
 dense reformulation (SURVEY.md §7 'hard parts').
@@ -26,8 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from compv_tpu.core.types import Lines
-from compv_tpu.ops.bincount import batched_weighted_bincount
-from compv_tpu.ops.pallas.hough_kernel import sht_accumulate_pallas
+from compv_tpu.ops.anglebin import angle_bin
 from compv_tpu.ops.topk import select_top_k_2d
 
 __all__ = ["HoughShtConfig", "hough_sht", "hough_sht_stats",
@@ -69,53 +68,67 @@ def _edge_list(edges: jax.Array, capacity: int,
     return (idx % w).astype(jnp.float32), (idx // w).astype(jnp.float32), valid
 
 
+def _fixed_point_shift(h: int, w: int, rho_max: float, rho_step: float
+                       ) -> int:
+    """Largest binary scale 2^s at which every step of the rho-bin sum
+    x*cos + y*sin + rho_max + step/2 stays inside int32."""
+    bound = (w - 1) + (h - 1) + rho_max + rho_step + 2
+    return int(np.floor(np.log2((2 ** 31 - 1) / bound)))
+
+
+def _trig_tables(n_theta: int, theta_step: float, shift: int):
+    """(cos, sin) of every theta bin as int32 multiples of 2^-shift, built
+    on the host so every backend bins with the same constants."""
+    t = np.arange(n_theta, dtype=np.float64) * theta_step
+    return (np.round(np.cos(t) * 2.0 ** shift).astype(np.int32),
+            np.round(np.sin(t) * 2.0 ** shift).astype(np.int32))
+
+
+def _rho_bin(xi, yi, cos_q, sin_q, rho_max: float, rho_step: float,
+             shift: int, n_rho: int):
+    """round((x cos + y sin + rho_max) / rho_step) for integer pixel
+    coordinates, in exact int32 fixed point: the bin never depends on a
+    backend's trig, fused multiply-add or rounding, so every device votes
+    into the same bins (halves round up)."""
+    step_q = int(round(rho_step * 2.0 ** shift))
+    num = cos_q * xi + sin_q * yi + int(round(rho_max * 2.0 ** shift))
+    return jnp.clip((num + step_q // 2) // step_q, 0, n_rho - 1)
+
+
 def _rho_bins(x, y, n_theta: int, rho_max: float, rho_step: float,
-              theta_step: float):
+              theta_step: float, shift: int):
     """(A, E) rho-bin index of every edge point at every theta."""
-    thetas = jnp.arange(n_theta, dtype=jnp.float32) * theta_step
-    cos_t = jnp.cos(thetas)
-    sin_t = jnp.sin(thetas)
-    rho = cos_t[:, None] * x[None, :] + sin_t[:, None] * y[None, :]  # (A, E)
+    cos_q, sin_q = _trig_tables(n_theta, theta_step, shift)
     n_rho = int(np.ceil(2 * rho_max / rho_step)) + 1
-    rbin = jnp.round((rho + rho_max) / rho_step).astype(jnp.int32)
-    return jnp.clip(rbin, 0, n_rho - 1), n_rho
+    rbin = _rho_bin(x.astype(jnp.int32)[None, :], y.astype(jnp.int32)[None, :],
+                    jnp.asarray(cos_q)[:, None], jnp.asarray(sin_q)[:, None],
+                    rho_max, rho_step, shift, n_rho)
+    return rbin, n_rho
 
 
 def _accumulate(x, y, valid, weights, n_theta: int, rho_max: float,
-                rho_step: float, theta_step: float, img_w: int | None = None):
-    """(A, R) accumulator: for every edge point and every theta bin, vote
-    round((x cos + y sin + rho_max)/step).
-
-    Scatter-free. On TPU: a Pallas kernel fusing the one-hot build with the
-    int8 MXU contraction in VMEM (ops/pallas/hough_kernel.py) — the XLA
-    form materializes ~3.5 GB of one-hots per 720p frame (measured 44 ms vs
-    ~3 ms fused). On CPU (and when weights aren't 0/1): per-theta weighted
-    bincount as batched matmuls (ops/bincount.py). Both are bit-exact
-    per-edge-per-theta accumulation; the reference's per-thread clone +
-    merge (houghsht.cxx:184-196) disappears — the reduction is the merge.
-    `img_w` (image width) tightens the per-theta rho window for the Pallas
-    path; without it the window is bounded by rho_max."""
-    n_rho = int(np.ceil(2 * rho_max / rho_step)) + 1
-    if jax.default_backend() == "tpu":
-        w_row = (weights * valid).astype(jnp.int32)
-        acc = sht_accumulate_pallas(
-            x, y, w_row, n_theta, rho_max, rho_step, theta_step,
-            int(img_w) if img_w else int(np.ceil(rho_max)),
-            int(np.ceil(rho_max))).astype(jnp.float32)
-        return acc, n_rho
-    rbin, n_rho = _rho_bins(x, y, n_theta, rho_max, rho_step, theta_step)
+                rho_step: float, theta_step: float, shift: int):
+    """(A, R) accumulator: for every edge point (integer pixel coordinates)
+    and every theta bin, vote round((x cos + y sin + rho_max)/step),
+    weighted by the integer ``weights``. One int32 scatter-add, exact in
+    any vote order; the reference's per-thread clone + merge
+    (houghsht.cxx:184-196) disappears."""
+    rbin, n_rho = _rho_bins(x, y, n_theta, rho_max, rho_step, theta_step,
+                            shift)
     w_row = (weights * valid).astype(jnp.int32)          # (E,)
-    w = jnp.broadcast_to(w_row[None, :], rbin.shape)
-    acc = batched_weighted_bincount(rbin, w, n_rho).astype(jnp.float32)
-    return acc, n_rho
+    tbin = jnp.broadcast_to(
+        jnp.arange(n_theta, dtype=jnp.int32)[:, None], rbin.shape)
+    acc = jnp.zeros((n_theta, n_rho), jnp.int32).at[tbin, rbin].add(
+        jnp.broadcast_to(w_row[None, :], rbin.shape))
+    return acc.astype(jnp.float32), n_rho
 
 
 def _acc_nms_topk(acc: jax.Array, threshold: float, max_lines: int,
                   rho_max: float, rho_step: float, theta_step: float) -> Lines:
     """4-neighbor NMS on the accumulator (houghsht.cxx:483) then top-K.
 
-    lax.top_k over the full accumulator is a flat ~2 ms on TPU (it lowers to
-    a sort); instead take the top-2 NMS survivors per 64-bin rho segment
+    Rather than lax.top_k over the full accumulator (a sort of every bin),
+    take the top-2 NMS survivors per 64-bin rho segment
     (NMS peaks are >= 2 bins apart, so a segment holds at most ~21 peaks but
     nearly always <= 2 above threshold) and run the exact top-K on the ~16k
     candidates. A peak is only lost if 3+ above-threshold NMS survivors
@@ -169,7 +182,8 @@ def _hough_sht_impl(edges, strengths, config: HoughShtConfig, shape):
     x, y, valid = _edge_list(edges, config.max_edge_points, strengths)
     weights = jnp.ones_like(x)
     acc, _ = _accumulate(x, y, valid, weights, n_theta, rho_max,
-                         config.rho, theta_step, img_w=w)
+                         config.rho, theta_step,
+                         _fixed_point_shift(h, w, rho_max, config.rho))
     thr = (jnp.asarray(config.threshold, jnp.float32) if config.threshold >= 1.0
            else config.threshold * jnp.max(acc))
     lines = _acc_nms_topk(acc, thr, config.max_lines,
@@ -251,9 +265,8 @@ def _hough_kht_impl(edges, gx, gy, config: HoughKhtConfig, shape):
     # capacity, the strongest (most KHT-significant) edges survive — the
     # dense analogue of KHT's "significant kernels only" pruning
     # approx_max_k retention: KHT's "significant kernels only" pruning is
-    # itself a heuristic, so hardware PartialReduce (recall ~0.95, ~10x
-    # cheaper than exact top-k) is an acceptable ranking here — unlike SHT,
-    # where the oracle requires every edge accumulated.
+    # itself a heuristic, so an approximate ranking is acceptable here —
+    # unlike SHT, where the oracle requires every edge accumulated.
     # +1 floor keeps edge pixels whose own gradient vanishes (the center of
     # a 1-px line is symmetric -> zero sobel response ON the pixel; its
     # orientation still comes from the structure tensor of the 3x3 hood)
@@ -280,22 +293,28 @@ def _hough_kht_impl(edges, gx, gy, config: HoughKhtConfig, shape):
             jxy = jxy + gxs * gys
             jyy = jyy + gys * gys
     # dominant orientation of the structure tensor: angle of the major
-    # eigenvector = 0.5 * atan2(2 Jxy, Jxx - Jyy)
-    ang_map = 0.5 * jnp.arctan2(2.0 * jxy, jxx - jyy)
-    ang = ang_map[yi, xi]
-    ang = jnp.where(ang < 0, ang + jnp.pi, ang)
-    tcenter = jnp.round(ang / theta_step).astype(jnp.int32) % n_theta
+    # eigenvector = 0.5 * atan2(2 Jxy, Jxx - Jyy), i.e. theta bin
+    # round(atan2(2 Jxy, Jxx - Jyy) / (2 theta_step)) — settled exactly
+    # (ops.anglebin) on the doubled-angle vector, scaled by a power of two
+    # into int32 (exact for the integer tensors of u8 Sobel gradients)
+    va = (jxx - jyy)[yi, xi]
+    vb = (2.0 * jxy)[yi, xi]
+    _, e = jnp.frexp(jnp.maximum(jnp.abs(va), jnp.abs(vb)))
+    tcenter = angle_bin(jnp.round(jnp.ldexp(va, 30 - e)).astype(jnp.int32),
+                        jnp.round(jnp.ldexp(vb, 30 - e)).astype(jnp.int32),
+                        n_theta, centred=True)
 
-    # KHT votes are SPARSE in theta (3 of n_theta bins per point), so the
-    # dense MXU bincount that wins for SHT loses here (measured 73 vs 330
-    # fps at 720p) — a 3E-element scatter stays the right tool
+    # KHT votes are sparse in theta (3 of n_theta bins per point): a
+    # 3E-element scatter. The weights are multiples of 0.5, so the f32
+    # sums are exact and independent of the order the votes land in.
+    shift = _fixed_point_shift(h, w, rho_max, config.rho)
+    cos_q, sin_q = (jnp.asarray(t) for t in
+                    _trig_tables(n_theta, theta_step, shift))
     acc = jnp.zeros((n_theta, n_rho), jnp.float32)
     for dt in (-1, 0, 1):
         tb = (tcenter + dt) % n_theta
-        th = tb.astype(jnp.float32) * theta_step
-        rho = x * jnp.cos(th) + y * jnp.sin(th)
-        rb = jnp.clip(jnp.round((rho + rho_max) / config.rho).astype(jnp.int32),
-                      0, n_rho - 1)
+        rb = _rho_bin(xi, yi, cos_q[tb], sin_q[tb], rho_max, config.rho,
+                      shift, n_rho)
         wgt = jnp.where(valid, jnp.where(dt == 0, 1.0, 0.5), 0.0)
         acc = acc.at[tb, rb].add(wgt)
 

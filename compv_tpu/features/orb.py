@@ -1,4 +1,4 @@
-"""ORB: oriented FAST detector + rotated-BRIEF-256 descriptor, TPU-native.
+"""ORB: oriented FAST detector + rotated-BRIEF-256 descriptor.
 
 Reference behavior:
   * detector (core/features/orb/compv_core_feature_orb_dete.cxx): 8-level
@@ -9,17 +9,16 @@ Reference behavior:
     (orb_dete.cxx:330-346, CompVPatch::moments0110 base/compv_patch.cxx:58),
     coords scaled back to level 0.
   * descriptor (core/features/orb/compv_core_feature_orb_desc.cxx): per-level
-    Gaussian blur (k=5, sigma=2.0, orb_desc.cxx:119-120); per keypoint the
+    Gaussian blur (k=5, sigma=2.0, orb_desc.cxx:119-120), here in Q16 fixed
+    point (ops.conv.gaussian_blur_q16); per keypoint the
     256 (A,B) point pairs are rotated by the keypoint orientation, ROUNDED to
     nearest int and sampled nearest-neighbor from the blurred level image
     centered at the rounded keypoint (CompVOrbBrief256_31_32f_C,
     orb_desc.cxx:477-518); bit i = (I[A_i] < I[B_i]).
 
-TPU design: per-level dense FAST (features/fast.py) + top-k; orientation
+Design: per-level dense FAST (features/fast.py) + top-k; orientation
 comes from dense incremental-shift moment maps (2 gathers/keypoint), and
-the descriptor samples 31x31 patch slices through row/col one-hot MXU
-bilinear forms on TPU (bit-identical per-sample gathers on CPU, where
-gathers are cheap and the one-hot FLOP inflation is not). The BRIEF pattern is
+the descriptor is 2 x 256 per-sample gathers per keypoint. The BRIEF pattern is
 generated deterministically (Gaussian sigma = patch/5 clipped to the radius-14
 disc, the original BRIEF "GII" scheme) — NOT copied from the reference's
 hardcoded table; rotation preserves the norm so all rotated samples stay
@@ -40,7 +39,8 @@ from compv_tpu.core.types import Keypoints
 from compv_tpu.features.fast import _nms_f32, _strengths_f32
 from compv_tpu.image.pyramid import pyramid_sizes, scale_factors, scale_factors_sum
 from compv_tpu.image.scale import scale as scale_image
-from compv_tpu.ops.conv import gaussian_blur
+from compv_tpu.ops.conv import gaussian_blur_q16
+from compv_tpu.ops.anglebin import angle_bin
 from compv_tpu.ops.bitops import pack_bits_to_bytes
 from compv_tpu.ops.topk import select_top_k_2d
 
@@ -105,6 +105,25 @@ def _disc_mask_and_grids(radius: int):
 # numpy at module scope; converted at trace time (see _PATTERN note)
 _DISC_MASK, _DISC_X, _DISC_Y = _disc_mask_and_grids(PATCH_RADIUS)
 
+ORIENT_BINS = 360     # orientation resolution: 1-degree bins
+
+
+def _steering_offsets(bins: int = ORIENT_BINS) -> np.ndarray:
+    """(bins, 256, 4) i8 host table: the BRIEF pattern [ax, ay, bx, by]
+    rotated by each orientation bin's centre angle and rounded (float64,
+    once), so steering is the same integers on every backend."""
+    ctr = (2 * np.arange(bins) + 1) * np.pi / bins
+    c, sn = np.cos(ctr)[:, None], np.sin(ctr)[:, None]
+    ax, ay = _PATTERN[None, :, 0], _PATTERN[None, :, 1]
+    bx, by = _PATTERN[None, :, 2], _PATTERN[None, :, 3]
+    offsets = np.stack([np.round(ax * c - ay * sn), np.round(ax * sn + ay * c),
+                        np.round(bx * c - by * sn), np.round(bx * sn + by * c)],
+                       -1).astype(np.int8)
+    return offsets
+
+
+_BRIEF_OFFSETS = _steering_offsets()
+
 
 def _m10_map(img: jax.Array) -> jax.Array:
     """Dense map of the disc first moment m10(y, x) = sum over the
@@ -153,17 +172,18 @@ def patch_orientation(img: jax.Array, x: jax.Array, y: jax.Array,
     rounded (x, y) on ``img``. Batched over the keypoint axis.
 
     m10 = sum(x_rel * I), m01 = sum(y_rel * I) over the radius-15 disc;
-    orient = atan2(m01, m10) (orb_dete.cxx:336-344).
+    orient = atan2(m01, m10) (orb_dete.cxx:336-344), returned as the centre
+    of its 1-degree bin. The moments are exact integers and the bin is
+    settled by exact integer arithmetic (ops.anglebin.angle_bin), so every
+    backend returns the same bin.
 
-    r5 formulation: the moments are LINEAR in the image, so both are
-    dense maps computed once per level and gathered at the K keypoints —
-    2 gathers/keypoint instead of a 961-element patch slice per keypoint
-    (the vmapped-slice form measured 2 ms for ~2.3k keypoints across the
-    720p pyramid). The disc is a stack of 31 row windows with 16
-    distinct half-widths e(dy) = floor(sqrt(r^2 - dy^2)); each row's
-    centered moment builds incrementally over e and the vertical stack
-    is 31 static row shifts (~90 cheap VPU passes; a direct 31x31
-    single-channel conv has no MXU path and measured 106 ms at 720p).
+    The moments are LINEAR in the image, so both are dense maps computed
+    once per level and gathered at the K keypoints — 2 gathers/keypoint
+    instead of a 961-element patch slice per keypoint. The disc is a stack
+    of 31 row windows with 16 distinct half-widths e(dy) =
+    floor(sqrt(r^2 - dy^2)); each row's centered moment builds
+    incrementally over e and the vertical stack is 31 static row shifts
+    (~90 fused elementwise passes instead of a 31x31 single-channel conv).
     Integer-exact for u8 input — see _m10_map."""
     h, w = img.shape
     m10_map = _m10_map(img)
@@ -174,8 +194,8 @@ def patch_orientation(img: jax.Array, x: jax.Array, y: jax.Array,
                   h - 1 - PATCH_RADIUS)
     m10 = m10_map[yi, xi]
     m01 = m01_map[yi, xi]
-    deg = jnp.rad2deg(jnp.arctan2(m01, m10))
-    deg = jnp.where(deg < 0, deg + 360.0, deg)
+    b = angle_bin(m10.astype(jnp.int32), m01.astype(jnp.int32), ORIENT_BINS)
+    deg = (b.astype(jnp.float32) + 0.5) * (360.0 / ORIENT_BINS)
     return jnp.where(valid, deg, 0.0)
 
 
@@ -185,82 +205,22 @@ def brief_describe(blurred: jax.Array, x: jax.Array, y: jax.Array,
 
     Per reference kernel (orb_desc.cxx:477-518): rotate each pattern point by
     the keypoint angle, round to nearest int, nearest-neighbor sample, bit =
-    (I[A] < I[B])."""
+    (I[A] < I[B]). The angle steers in 1-degree bins (the bin's centre, as
+    patch_orientation returns it): the rotated, rounded offsets come from a
+    host table, so they are the same integers on every backend."""
     h, w = blurred.shape
     f = blurred.astype(jnp.float32)
-    th = jnp.deg2rad(orientation_deg)
-    cos_t, sin_t = jnp.cos(th), jnp.sin(th)                  # (K,)
     xi = jnp.round(x).astype(jnp.int32)
     yi = jnp.round(y).astype(jnp.int32)
+    b = jnp.floor(orientation_deg * (ORIENT_BINS / 360.0)).astype(jnp.int32)
+    off = jnp.asarray(_BRIEF_OFFSETS)[b % ORIENT_BINS].astype(jnp.int32)
+    rax, ray, rbx, rby = off[..., 0], off[..., 1], off[..., 2], off[..., 3]
 
-    pat = jnp.asarray(_PATTERN)
-    ax, ay = pat[:, 0].astype(jnp.float32), pat[:, 1].astype(jnp.float32)
-    bx, by = pat[:, 2].astype(jnp.float32), pat[:, 3].astype(jnp.float32)
-
-    def rot(px, py):
-        # (K, 256) rotated + rounded offsets
-        rx = jnp.round(px[None, :] * cos_t[:, None] - py[None, :] * sin_t[:, None])
-        ry = jnp.round(px[None, :] * sin_t[:, None] + py[None, :] * cos_t[:, None])
-        return rx.astype(jnp.int32), ry.astype(jnp.int32)
-
-    rax, ray = rot(ax, ay)
-    rbx, rby = rot(bx, by)
-
-    if jax.default_backend() != "tpu":
-        # CPU/GPU: per-sample gathers are cheap and the one-hot einsums'
-        # ~100x FLOP inflation is not (the r5 golden generator measured
-        # ~2.5x slower CPU ORB on the MXU path). Bit-identical results.
-        gx_a = jnp.clip(xi[:, None] + rax, 0, w - 1)
-        gy_a = jnp.clip(yi[:, None] + ray, 0, h - 1)
-        gx_b = jnp.clip(xi[:, None] + rbx, 0, w - 1)
-        gy_b = jnp.clip(yi[:, None] + rby, 0, h - 1)
-        a = f[gy_a, gx_a]
-        b = f[gy_b, gx_b]
-        bits = (a < b).astype(jnp.uint8)
-        return jnp.where(valid[:, None], bits, jnp.uint8(0))
-
-    # r5 MXU formulation: one 31x31 patch per keypoint (vmapped
-    # dynamic_slice — contiguous rows lower ~7x cheaper than the (K,256)
-    # element gathers this replaces, which measured ~10 ms at 2.3k
-    # keypoints/720p), then each rotated sample is selected by a row
-    # one-hot x patch x col one-hot bilinear form batched on the MXU.
-    # Bit-exact vs the gather form: pattern radius <= 14 keeps every
-    # rotated+rounded offset inside the patch, one-hots are 0/1 (exact
-    # in bf16), and u8 pixel values <= 255 are exact in bf16 with f32
-    # accumulation. Keypoints are clamped to patch-interior centers
-    # (identical for ORB's border-erased keypoints; direct calls with
-    # border keypoints sample the shifted interior patch instead of
-    # edge-clamped pixels).
-    r = PATCH_RADIUS
-    cx = jnp.clip(xi, r, w - 1 - r)
-    cy = jnp.clip(yi, r, h - 1 - r)
-    integer_img = jnp.issubdtype(blurred.dtype, jnp.integer)
-    pdt = jnp.bfloat16 if integer_img else jnp.float32
-    prec = None if integer_img else jax.lax.Precision.HIGHEST
-    fp = blurred.astype(pdt)
-
-    def one(cx_, cy_):
-        return jax.lax.dynamic_slice(fp, (cy_ - r, cx_ - r),
-                                     (PATCH_DIAMETER, PATCH_DIAMETER))
-
-    patches = jax.vmap(one)(cx, cy)                    # (K, 31, 31)
-
-    cols = jnp.arange(PATCH_DIAMETER, dtype=jnp.int32)
-
-    def sample(rx, ry):
-        col_oh = (jnp.clip(rx + r, 0, 2 * r)[..., None] == cols
-                  ).astype(pdt)                        # (K, 256, 31)
-        row_oh = (jnp.clip(ry + r, 0, 2 * r)[..., None] == cols
-                  ).astype(pdt)
-        tmp = jnp.einsum("krc,kbc->kbr", patches, col_oh,
-                         preferred_element_type=jnp.float32,
-                         precision=prec)
-        return jnp.einsum("kbr,kbr->kb", tmp,
-                          row_oh.astype(jnp.float32))
-
-    a = sample(rax, ray)
-    b = sample(rbx, rby)
-    bits = (a < b).astype(jnp.uint8)
+    gx_a = jnp.clip(xi[:, None] + rax, 0, w - 1)
+    gy_a = jnp.clip(yi[:, None] + ray, 0, h - 1)
+    gx_b = jnp.clip(xi[:, None] + rbx, 0, w - 1)
+    gy_b = jnp.clip(yi[:, None] + rby, 0, h - 1)
+    bits = (f[gy_a, gx_a] < f[gy_b, gx_b]).astype(jnp.uint8)
     return jnp.where(valid[:, None], bits, jnp.uint8(0))
 
 
@@ -296,10 +256,17 @@ def _subpixel_offsets(s: jax.Array, x: jax.Array, y: jax.Array):
     sd = s[yi + 1, xi]
 
     def vertex(a, b, c):
-        # parabola through (-1,a),(0,b),(1,c): vertex at (a-c)/(2(a-2b+c))
-        den = a - 2.0 * b + c
-        off = jnp.where(jnp.abs(den) > 1e-6, (a - c) / (2.0 * den), 0.0)
-        return jnp.clip(off, -0.5, 0.5)
+        # parabola through (-1,a),(0,b),(1,c): vertex at (a-c)/(2(a-2b+c)),
+        # rounded to 2^-10 px in exact integer arithmetic (the responses
+        # are small integers), so every backend lands on the same offset
+        ai, bi, ci = (v.astype(jnp.int32) for v in (a, b, c))
+        den = ai - 2 * bi + ci
+        sgn = jnp.where(den < 0, -1, 1)
+        num = (ai - ci) * (1024 * sgn)               # off * 1024 = num / d
+        d = 2 * den * sgn                            # > 0 unless den == 0
+        q = (2 * num + d) // jnp.maximum(2 * d, 1)   # round half up
+        q = jnp.where(den != 0, jnp.clip(q, -512, 512), 0)
+        return q.astype(jnp.float32) / 1024.0
 
     return vertex(sl, sc, sr), vertex(su, sc, sd)
 
@@ -349,7 +316,8 @@ def orb_detect_describe(img: jax.Array, config: OrbConfig = OrbConfig()
         ly = (idx // lw).astype(jnp.float32)
 
         orient = patch_orientation(level_img, lx, ly, valid)
-        blurred = gaussian_blur(level_img, config.blur_size, config.blur_sigma)
+        blurred = gaussian_blur_q16(level_img, config.blur_size,
+                                    config.blur_sigma)
         desc = brief_describe(blurred, lx, ly, orient, valid)
 
         # sub-pixel localization: 1-D quadratic vertex fit on the pre-NMS

@@ -3,13 +3,12 @@
 Reference: CompVMathHistogram (base/math/compv_math_histogram.cxx) — SIMD
 bin-count kernels (speed_compare:49-58).
 
-TPU-native formulation — NO scatter, NO gather (both are pathological on
-TPU; the scatter-add bincount measured 8 ms/frame at 720p, the nibble-matmul
-below ~0.05 ms):
+Formulation — NO scatter, NO gather (whether that beats a plain
+scatter-add on the GPU is not measured yet):
 
   * histogram: split each byte v into nibbles (hi, lo). Then
         hist[hi*16+lo] = sum_n onehot_hi[n,hi] * onehot_lo[n,lo]
-    i.e. ONE (16,N)x(N,16) matmul on the MXU over {0,1} one-hots (bf16 in,
+    i.e. ONE (16,N)x(N,16) matmul over {0,1} one-hots (bf16 in,
     f32 accumulate — exact: counts < 2^24).
   * LUT apply (equalization): lut[v] = onehot_lo @ lut2d[hi,:] selected by
     hi, i.e. (N,16)x(16,16) matmul + a 16-way masked sum — gather-free.
@@ -35,7 +34,7 @@ def _nibble_onehots(flat_u8: jax.Array):
 
 
 def histogram256(img: jax.Array) -> jax.Array:
-    """(..., H, W) u8 -> (..., 256) i32 counts (MXU nibble-matmul)."""
+    """(..., H, W) u8 -> (..., 256) i32 counts (nibble matmul)."""
     batch_shape = img.shape[:-2]
     flat = img.reshape(*batch_shape, -1)
 

@@ -1,6 +1,6 @@
 """Summed-area tables (integral images).
 
-Reference: base/image/compv_image_integral.cxx (SSSE3 kernels). On TPU the
+Reference: base/image/compv_image_integral.cxx (SSSE3 kernels). The
 natural formulation is two cumulative sums — XLA lowers cumsum to an
 efficient parallel scan.
 """
@@ -14,8 +14,8 @@ __all__ = ["integral", "integral_squared", "box_sum", "box_mean_var"]
 
 def integral(img: jax.Array, dtype=jnp.float64) -> jax.Array:
     """Integral image with a leading zero row/col: out shape (H+1, W+1),
-    out[i,j] = sum(img[:i,:j]). f64 by default off-TPU; on TPU pass
-    jnp.float32 or jnp.int32 for u8 inputs (exact up to 2^31)."""
+    out[i,j] = sum(img[:i,:j]). f64 when x64 is enabled; otherwise pass
+    jnp.float32, or jnp.int32 for u8 inputs (exact up to 2^31)."""
     if dtype == jnp.float64 and not jax.config.read("jax_enable_x64"):
         dtype = jnp.int32 if jnp.issubdtype(img.dtype, jnp.integer) else jnp.float32
     s = jnp.cumsum(jnp.cumsum(img.astype(dtype), axis=-2), axis=-1)

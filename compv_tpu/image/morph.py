@@ -1,8 +1,8 @@
 """Binary/grayscale morphology: erode, dilate, open, close.
 
 Reference: CompVMathMorph::process (base/math/compv_math_morph.cxx:95-110)
-with cross/rect structuring elements on u8 planes. TPU formulation:
-reduce_window min/max — one fused XLA op each, VPU-bound like the
+with cross/rect structuring elements on u8 planes. Formulation:
+reduce_window min/max — one fused XLA op each, bandwidth-bound like the
 reference's SIMD kernels.
 """
 from __future__ import annotations

@@ -5,7 +5,7 @@ Reference: CompVImageScalePyramid (base/image/compv_image_scale_pyramid.cxx:62,1
 scaleFactorsSum() used for per-level feature budgets
 (core/features/orb/compv_core_feature_orb_dete.cxx:301-302).
 
-TPU design: all levels are computed in one jitted call. Because XLA requires
+Design: all levels are computed in one jitted call. Because XLA requires
 static shapes, each level has its own (h_l, w_l) derived at trace time;
 levels are returned as a list (a Python-level structure of fixed arrays),
 which is also what scan-free per-level processing wants.

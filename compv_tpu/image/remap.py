@@ -4,7 +4,7 @@ Reference: CompVImageRemap::process (base/image/compv_image_remap.cxx:417)
 and CompVImage::warp/warpInverse (base/image/compv_image.cxx / compv_image.h:74-75).
 Used by undistortion (core/calib/compv_core_calib_utils.cxx:227-485).
 
-On TPU a remap is a 2D gather + lerp over the destination grid; XLA lowers it
+A remap is a 2D gather + lerp over the destination grid; XLA lowers it
 to a single fused gather kernel.
 """
 from __future__ import annotations

@@ -3,9 +3,9 @@
 Reference: base/image/compv_image_scale_bilinear.cxx,
 compv_image_scale_bicubic.cxx, driven by CompVImage::scale
 (base/image/compv_image.cxx:852). The reference splits rows across the
-thread pool and uses fixed-point sample weights; on TPU a scale is a pair of
+thread pool and uses fixed-point sample weights; here a scale is a pair of
 gathers + lerps over the whole image, fused by XLA — one kernel, no tiling
-logic needed (HBM-bandwidth bound, same as the reference's roofline).
+logic needed (memory-bandwidth bound, same as the reference's roofline).
 
 Sample-position convention: half-pixel centers (dst x maps to
 (x+0.5)*sx - 0.5), matching OpenCV/the reference's visual behavior.
@@ -35,12 +35,45 @@ def scale_nearest(img: jax.Array, out_h: int, out_w: int) -> jax.Array:
     return img[ys][:, xs]
 
 
+_BILINEAR_BITS = 11   # fixed-point weight precision of the u8 path
+
+
+def _bilinear_taps(dst_n: int, src_n: int):
+    """Host-side (numpy) source taps and Q11 weights of one axis:
+    (i0, i1, w1) with w1 in [0, 2048] the weight of i1."""
+    one = 1 << _BILINEAR_BITS
+    x = np.clip((np.arange(dst_n) + 0.5) * (src_n / dst_n) - 0.5,
+                0.0, src_n - 1.0)
+    i0 = np.floor(x).astype(np.int32)
+    i1 = np.minimum(i0 + 1, src_n - 1)
+    w1 = np.round((x - i0) * one).astype(np.int32)
+    return i0, i1, w1
+
+
 def scale_bilinear(img: jax.Array, out_h: int, out_w: int) -> jax.Array:
-    """(H,W[,C]) u8/f32 -> (out_h,out_w[,C]) same dtype."""
+    """(H,W[,C]) u8/f32 -> (out_h,out_w[,C]) same dtype.
+
+    Integer images interpolate in fixed point, like the reference's
+    fixed-point sample weights: Q11 weights from host-side tables and int32
+    sums (255 * 2^11 * 2^11 < 2^31) rounded half up — the same bytes on
+    every backend. Float images interpolate in f32."""
     h, w = img.shape[:2]
     dtype = img.dtype
-    f = img.astype(jnp.float32)
+    if jnp.issubdtype(dtype, jnp.integer):
+        y0, y1, wy = _bilinear_taps(out_h, h)
+        x0, x1, wx = _bilinear_taps(out_w, w)
+        one = 1 << _BILINEAR_BITS
+        wy, wx = wy[:, None], wx[None, :]
+        if img.ndim == 3:
+            wy, wx = wy[..., None], wx[..., None]
+        f = img.astype(jnp.int32)
+        top = f[y0][:, x0] * (one - wx) + f[y0][:, x1] * wx
+        bot = f[y1][:, x0] * (one - wx) + f[y1][:, x1] * wx
+        out = top * (one - wy) + bot * wy
+        out = (out + (1 << (2 * _BILINEAR_BITS - 1))) >> (2 * _BILINEAR_BITS)
+        return jnp.clip(out, 0, 255).astype(dtype)
 
+    f = img.astype(jnp.float32)
     yf = jnp.clip(_src_coords(out_h, h), 0.0, h - 1.0)
     xf = jnp.clip(_src_coords(out_w, w), 0.0, w - 1.0)
     y0 = jnp.floor(yf).astype(jnp.int32)
@@ -55,10 +88,7 @@ def scale_bilinear(img: jax.Array, out_h: int, out_w: int) -> jax.Array:
 
     top = f[y0][:, x0] * (1 - wx) + f[y0][:, x1] * wx
     bot = f[y1][:, x0] * (1 - wx) + f[y1][:, x1] * wx
-    out = top * (1 - wy) + bot * wy
-    if jnp.issubdtype(dtype, jnp.integer):
-        out = jnp.clip(jnp.round(out), 0, 255)
-    return out.astype(dtype)
+    return (top * (1 - wy) + bot * wy).astype(dtype)
 
 
 def _cubic_weights(t: jax.Array, a: float = -0.5):
@@ -143,8 +173,8 @@ def _roll_lines(x: jax.Array, shifts: jax.Array, axis: int) -> jax.Array:
     """Roll each line of a 2-D array along ``axis`` by its own amount
     (shifts left/up by shifts[i], one entry per line of the OTHER axis).
 
-    Per-pixel gathers are pathological on TPU; a per-line variable roll is a
-    barrel shifter instead: log2(n) uniform rolls, each applied only to the
+    A per-line variable roll without a per-pixel gather is a barrel
+    shifter: log2(n) uniform rolls, each applied only to the
     lines whose shift has that bit set (select). Wraparound is the caller's
     responsibility (pad with enough zeros)."""
     n = x.shape[axis]
@@ -178,8 +208,8 @@ def _shear(x: jax.Array, factor: jax.Array, axis: int) -> jax.Array:
 
 
 def rotate_fast(img: jax.Array, angle_deg: jax.Array) -> jax.Array:
-    """Rotation by three shears (Paeth 1986) on an expanded canvas — the
-    TPU-native rotation: no gathers, only uniform rolls + selects + lerps.
+    """Rotation by three shears (Paeth 1986) on an expanded canvas — a
+    gather-free rotation: only uniform rolls + selects + lerps.
 
     rotate(a) = shear_x(-tan(a/2)) . shear_y(sin(a)) . shear_x(-tan(a/2)),
     each shear a per-line sub-pixel translation (see _shear). Quality is

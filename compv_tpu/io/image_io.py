@@ -6,7 +6,7 @@ filename (e.g. equirectangular_1282x720_gray.yuv — tests_common.cxx:52-59),
 plus jpeg via the drawing module's libjpeg hook.
 
 Here: raw planar formats by filename convention, PNG/JPEG/BMP via PIL,
-PGM/PPM natively. Decoding is host-side numpy (IO is not a TPU problem);
+PGM/PPM natively. Decoding is host-side numpy (IO is not a device problem);
 arrays feed straight into the jnp pipeline.
 """
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Reference persistence surfaces: Mat<->JSON (base/include/compv/base/compv_json.h:22-27),
 SVM/Annoy model files, PCA json (SURVEY.md §5 'Checkpoint / resume').
-TPU additions: orbax-style checkpoint of SLAM state (keyframes, landmarks,
+Additions: orbax-style checkpoint of SLAM state (keyframes, landmarks,
 poses, BA state) for multi-host failure recovery — the elasticity story the
 single-process reference never needed.
 """

@@ -172,7 +172,7 @@ class VideoWriterRaw:
 
 
 class FfmpegWriter:
-    """Pipe-encode via the ffmpeg binary (the TPU-host analogue of the
+    """Pipe-encode via the ffmpeg binary (the headless-host analogue of the
     reference's libavformat writer, core/video/compv_core_video_writer_ffmpeg.cxx:
     open stream -> write_frame loop -> close/trailer). We feed raw rgb24/gray
     frames over stdin and let ffmpeg own the container/codec state machine.

@@ -1,4 +1,4 @@
-"""Brute-force KNN Hamming matcher, reformulated for the MXU.
+"""Brute-force KNN Hamming matcher, reformulated as a matmul.
 
 Reference: CompVMatcherBruteForce (core/matchers/compv_core_matcher_bruteforce.cxx)
 — query blocks split across threads, per-train-row SIMD popcount Hamming
@@ -6,12 +6,12 @@ Reference: CompVMatcherBruteForce (core/matchers/compv_core_matcher_bruteforce.c
 optional cross-check for KNN=1. Headline: 28.4x vs OpenCV
 (speed_compare:135-140).
 
-TPU reformulation (SURVEY.md §2.6 item 1): descriptors as *unpacked* bit
+Reformulation (SURVEY.md §2.6 item 1): descriptors as *unpacked* bit
 matrices Q (Nq, 256), T (Nt, 256) in {0,1}. Then
 
     hamming(q, t) = popcount(q) + popcount(t) - 2 * <q, t>
 
-so the whole Nq x Nt distance matrix is ONE matmul on the MXU (bf16 inputs,
+so the whole Nq x Nt distance matrix is ONE matmul (bf16 inputs,
 f32 accumulate — exact: all values are small integers) plus rank-1
 broadcasts. KNN-2 = two passes of min+mask (cheaper than a full sort for
 K<=2; general K uses lax.top_k on negated distances).
@@ -41,8 +41,8 @@ class MatcherConfig:
 
 def hamming_distance_matrix(query_bits: jax.Array, train_bits: jax.Array
                             ) -> jax.Array:
-    """(Nq, B) x (Nt, B) {0,1} bits -> (Nq, Nt) i32 Hamming distances via an
-    MXU matmul. B is the descriptor bit width (256 for ORB)."""
+    """(Nq, B) x (Nt, B) {0,1} bits -> (Nq, Nt) i32 Hamming distances via a
+    bf16 matmul (exact: 0/1 operands, f32 accumulation). B is the descriptor bit width (256 for ORB)."""
     q = query_bits.astype(jnp.bfloat16)
     t = train_bits.astype(jnp.bfloat16)
     dot = jax.lax.dot_general(

@@ -1,8 +1,8 @@
 """Distance kernels: Hamming, point-to-curve residuals, L2.
 
 Reference: CompVMathDistance (base/math/compv_math_distance.cxx): `hamming`
-(Mula/Harley-Seal SIMD popcount, :21-34,:77 — on TPU see
-matchers/bruteforce.py for the MXU matmul form), `line`/`parabola`
+(Mula/Harley-Seal SIMD popcount, :21-34,:77 — see
+matchers/bruteforce.py for the matmul form), `line`/`parabola`
 point-to-curve distances (RANSAC residuals), `squaredL2`.
 """
 from __future__ import annotations
@@ -11,6 +11,7 @@ import jax
 import jax.numpy as jnp
 
 from compv_tpu.ops.bitops import unpack_bytes_to_bits
+from compv_tpu.precision import geometry
 
 __all__ = ["hamming", "hamming_packed", "dist_line", "dist_parabola",
            "squared_l2", "l2"]
@@ -45,14 +46,16 @@ def dist_parabola(pts: jax.Array, a, b, c, axis: str = "x") -> jax.Array:
     return jnp.abs(pts[:, 0] - (a * pts[:, 1] ** 2 + b * pts[:, 1] + c))
 
 
+@geometry
 def squared_l2(a: jax.Array, b: jax.Array) -> jax.Array:
     """Pairwise squared L2: (N, D) x (M, D) -> (N, M) via the matmul
-    expansion (MXU path)."""
+    expansion."""
     aa = jnp.sum(a * a, axis=1)
     bb = jnp.sum(b * b, axis=1)
     ab = a @ b.T
     return jnp.maximum(aa[:, None] + bb[None, :] - 2.0 * ab, 0.0)
 
 
+@geometry
 def l2(a: jax.Array, b: jax.Array) -> jax.Array:
     return jnp.sqrt(squared_l2(a, b))

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 
 from compv_tpu.calib.ransac import RansacConfig, ransac
 from compv_tpu.math.distance import dist_line, dist_parabola
+from compv_tpu.precision import geometry
 
 __all__ = ["LineFit", "ParabolaFit", "fit_line", "fit_parabola"]
 
@@ -44,6 +45,7 @@ def _tls_line(pts: jax.Array, mask: jax.Array) -> jax.Array:
     return jnp.concatenate([normal, c[None]])
 
 
+@geometry
 def fit_line(pts: jax.Array, mask: jax.Array | None = None,
              threshold: float = 1.0, num_hypotheses: int = 256,
              seed: int = 0) -> LineFit:
@@ -75,6 +77,7 @@ def fit_line(pts: jax.Array, mask: jax.Array | None = None,
                    num_inliers=jnp.sum(inliers).astype(jnp.int32))
 
 
+@geometry
 def fit_parabola(pts: jax.Array, mask: jax.Array | None = None,
                  threshold: float = 1.0, num_hypotheses: int = 256,
                  axis: str = "x", seed: int = 0) -> ParabolaFit:

@@ -3,13 +3,14 @@
 Reference: CompVMatrix (base/math/compv_math_matrix.cxx, header
 base/include/compv/base/math/compv_math_matrix.h:16-72): mulAB/mulABt/mulAtA,
 Givens rotations mulAG/mulGA, transpose, rank, isSymmetric/isColinear,
-eigen/SVD/pseudo-inverse (:963-990). On TPU these map to jnp.linalg /
-lax.dot_general — the asm GEMM layer disappears into the MXU.
+eigen/SVD/pseudo-inverse (:963-990). These map to jnp.linalg /
+lax.dot_general — the asm GEMM layer disappears into XLA.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from compv_tpu.precision import geometry
 
 __all__ = ["mul_ab", "mul_abt", "mul_ata", "mul_ag", "mul_ga", "transpose",
            "rank", "is_symmetric", "is_colinear_2d", "eigen_symm", "svd",
@@ -17,16 +18,19 @@ __all__ = ["mul_ab", "mul_abt", "mul_ata", "mul_ag", "mul_ga", "transpose",
            "determinant"]
 
 
+@geometry
 def mul_ab(a, b):
     return jnp.matmul(a, b, preferred_element_type=jnp.float32)
 
 
+@geometry
 def mul_abt(a, b):
     """A @ B^T (reference mulABt — avoids materializing the transpose)."""
     return jax.lax.dot_general(a, b, (((a.ndim - 1,), (b.ndim - 1,)), ((), ())),
                                preferred_element_type=jnp.float32)
 
 
+@geometry
 def mul_ata(a):
     """A^T @ A (reference mulAtA, the DLT/normal-equations builder)."""
     return jax.lax.dot_general(a, a, (((0,), (0,)), ((), ())),
@@ -74,6 +78,7 @@ def is_colinear_2d(pts, tol: float = 1e-6):
     return jnp.all(jnp.abs(cross) <= tol * scale * scale)
 
 
+@geometry
 def eigen_symm(s, sort: bool = True):
     """Eigen decomposition of a symmetric matrix (reference
     CompVMathEigen<T>::findSymm — Jacobi iteration, compv_math_eigen.cxx:29;
@@ -85,11 +90,13 @@ def eigen_symm(s, sort: bool = True):
     return vals, vecs
 
 
+@geometry
 def svd(a):
     """(reference CompVMatrix::svd via eigen of AtA; XLA-native here)."""
     return jnp.linalg.svd(a, full_matrices=False)
 
 
+@geometry
 def pseudo_inverse(a, tol: float = 1e-6):
     """Moore-Penrose (reference pseudoinv, compv_math_matrix.cxx:970)."""
     u, s, vt = jnp.linalg.svd(a, full_matrices=False)

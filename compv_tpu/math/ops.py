@@ -3,7 +3,7 @@
 Reference: base/math/compv_math_op_*.cxx (add/sub/mul, minmax, clip, scale),
 compv_math_cast.cxx (s16<->f32 etc.), activation functions (tanh/logistic
 for ML), compv_math_exp.cxx (vectorized exp), compv_math_trig.h:22-35
-(fastAtan2, hypot), image moments. On TPU all of these are single fused XLA
+(fastAtan2, hypot), image moments. All of these are single fused XLA
 elementwise programs; they exist as named functions for API parity.
 """
 from __future__ import annotations

@@ -12,6 +12,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+from compv_tpu.precision import geometry
 
 __all__ = ["PcaModel", "pca_compute", "pca_project", "pca_backproject",
            "pca_save_json", "pca_load_json"]
@@ -23,6 +24,7 @@ class PcaModel(NamedTuple):
     values: jax.Array      # (K,) eigenvalues (descending)
 
 
+@geometry
 def pca_compute(data: jax.Array, num_components: int) -> PcaModel:
     """(N, D) observations -> top-K PCA model (covariance eigh)."""
     mean = jnp.mean(data, axis=0)
@@ -34,11 +36,13 @@ def pca_compute(data: jax.Array, num_components: int) -> PcaModel:
     return PcaModel(mean=mean, vectors=vecs.T, values=vals)
 
 
+@geometry
 def pca_project(model: PcaModel, data: jax.Array) -> jax.Array:
     """(N, D) -> (N, K)."""
     return (data - model.mean) @ model.vectors.T
 
 
+@geometry
 def pca_backproject(model: PcaModel, proj: jax.Array) -> jax.Array:
     """(N, K) -> (N, D)."""
     return proj @ model.vectors + model.mean

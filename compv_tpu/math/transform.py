@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from compv_tpu.precision import geometry
 
 __all__ = ["perspective_2d", "homogeneous_to_cartesian_2d", "to_homogeneous",
            "apply_homography"]
@@ -26,11 +27,13 @@ def homogeneous_to_cartesian_2d(pts_h: jax.Array) -> jax.Array:
     return pts_h[:2] / w
 
 
+@geometry
 def perspective_2d(pts_h: jax.Array, m: jax.Array) -> jax.Array:
     """(3, N) points, (3, 3) matrix -> (2, N) cartesian."""
     return homogeneous_to_cartesian_2d(m @ pts_h)
 
 
+@geometry
 def apply_homography(h: jax.Array, pts_xy: jax.Array) -> jax.Array:
     """(N, 2) convenience wrapper: returns (N, 2)."""
     return perspective_2d(to_homogeneous(pts_xy), h).T

@@ -4,10 +4,10 @@ Reference: CompVMachineLearningKNN wrapping vendored annoy-1.11.4
 (base/include/compv/base/ml/compv_base_ml_knn.h:19-47): addVector /
 build(n_trees) / save / load / search.
 
-TPU redesign: exact KNN is a distance matmul + top_k — on the MXU this is
-usually FASTER than a tree index for the corpus sizes the reference targets
-(annoy exists because CPU brute force is slow; the MXU changes the
-tradeoff). For very large corpora an annoy-style random-projection hash
+Design: exact KNN is a distance matmul + top_k — on an accelerator this
+is usually FASTER than a tree index for the corpus sizes the reference
+targets (annoy exists because CPU brute force is slow; a matrix unit
+changes the tradeoff). For very large corpora an annoy-style random-projection hash
 index narrows candidates, still evaluated as one batched matmul.
 """
 from __future__ import annotations
@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from compv_tpu.math.distance import squared_l2
+from compv_tpu.precision import geometry
 
 __all__ = ["KnnIndex", "knn_build", "knn_search", "knn_save_json",
            "knn_load_json", "AnnConfig", "ann_build", "ann_search"]
@@ -38,6 +39,7 @@ def knn_build(vectors: jax.Array, norm: str = "l2") -> KnnIndex:
     return KnnIndex(vectors=v, norm=norm)
 
 
+@geometry
 def knn_search(index: KnnIndex, queries: jax.Array, k: int):
     """Exact top-k: returns (indices (M, k), distances (M, k))."""
     q = queries.astype(jnp.float32)
@@ -79,6 +81,7 @@ class AnnIndex(NamedTuple):
     codes: jax.Array         # (N,) packed sign codes (int32, P <= 31)
 
 
+@geometry
 def ann_build(vectors: jax.Array, config: AnnConfig = AnnConfig()) -> AnnIndex:
     v = vectors.astype(jnp.float32)
     key = jax.random.PRNGKey(config.seed)
@@ -90,6 +93,7 @@ def ann_build(vectors: jax.Array, config: AnnConfig = AnnConfig()) -> AnnIndex:
     return AnnIndex(vectors=v, planes=planes, codes=codes)
 
 
+@geometry
 def ann_search(index: AnnIndex, queries: jax.Array, k: int,
                config: AnnConfig = AnnConfig()):
     """Hash-bucket shortlist (by code Hamming proximity) then exact distances

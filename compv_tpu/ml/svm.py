@@ -1,15 +1,15 @@
-"""SVM: RBF/linear kernel classification, TPU-native.
+"""SVM: RBF/linear kernel classification.
 
 Reference: CompVMachineLearningSVM wrapping vendored libsvm-322
 (base/include/compv/base/ml/compv_base_ml_svm.h:78-104): train with
 cross-validation, predict (RBF kernel vectorized with a SIMD-friendly node
 layout), model file IO.
 
-TPU redesign: batched kernel-matrix prediction is a pure matmul-shaped
-program (squared-L2 expansion + exp on the VPU). Training is SMO-free:
+Design: batched kernel-matrix prediction is a pure matmul-shaped
+program (squared-L2 expansion + elementwise exp). Training is SMO-free:
 kernel ridge-style dual solve for small problems and projected-gradient
 ascent on the SVM dual for larger ones — both fixed-iteration XLA loops.
-This trades libsvm's exact SMO for a TPU-parallel optimizer with the same
+This trades libsvm's exact SMO for a data-parallel optimizer with the same
 decision-function form f(x) = sum_i alpha_i y_i K(x_i, x) + b.
 """
 from __future__ import annotations
@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from compv_tpu.math.distance import squared_l2
+from compv_tpu.precision import geometry
 
 __all__ = ["SvmConfig", "SvmModel", "svm_train", "svm_predict",
            "svm_decision", "svm_save_json", "svm_load_json",
@@ -54,6 +55,7 @@ def _kernel(a, b, gamma, linear: bool):
     return jnp.exp(-gamma * squared_l2(a, b))
 
 
+@geometry
 def svm_train(x: jax.Array, y: jax.Array,
               config: SvmConfig = SvmConfig()) -> SvmModel:
     """Binary SVM; y in {-1, +1}. Projected gradient ascent on the dual:
@@ -85,6 +87,7 @@ def svm_train(x: jax.Array, y: jax.Array,
                     kernel_linear=linear)
 
 
+@geometry
 def svm_decision(model: SvmModel, x: jax.Array) -> jax.Array:
     """(M, D) -> (M,) decision values (reference predict w/ decision)."""
     k = _kernel(x.astype(jnp.float32), model.support, model.gamma,
@@ -120,7 +123,7 @@ def svm_cross_validate(x: jax.Array, y: jax.Array, config: SvmConfig,
 
 class MultiClassSvm(NamedTuple):
     """One-vs-rest multiclass (libsvm does one-vs-one; OvR is equivalent in
-    capability and batches better on TPU: all decisions in one matmul)."""
+    capability and batches better: all decisions in one matmul)."""
     models: list          # per-class SvmModel
     classes: jax.Array    # (C,)
 
@@ -170,6 +173,7 @@ def svm_load_json(path: str) -> SvmModel:
 # ------------------------------------------------------------- eps-SVR
 # (reference scope: libsvm EPSILON_SVR, compv_base_ml_svm.h:78-104)
 
+@geometry
 def svr_train(x: jax.Array, y: jax.Array, config: SvmConfig = SvmConfig(),
               epsilon: float = 0.1) -> SvmModel:
     """epsilon-insensitive support vector REGRESSION.
@@ -213,6 +217,7 @@ def svr_train(x: jax.Array, y: jax.Array, config: SvmConfig = SvmConfig(),
                     kernel_linear=linear)
 
 
+@geometry
 def svr_predict(model: SvmModel, x: jax.Array) -> jax.Array:
     """(M, D) -> (M,) regressed values."""
     return svm_decision(model, x)

@@ -1,8 +1,10 @@
 """ctypes bindings for the native runtime (native/compv_native.cpp).
 
-Compiles on first import (g++ -O3 -shared); falls back to pure-Python
-implementations if the toolchain is unavailable, so the package never hard-
-fails. Public surface: AlignedPool, PrefetchLoader, copy_strided.
+The shared library is not kept in git: it is built from the source on first
+use (g++ -O3 -shared) into native/libcompv_native.so, and rebuilt when the
+source is newer. Falls back to pure-Python implementations if the toolchain
+is unavailable, so the package never hard-fails. Public surface:
+AlignedPool, PrefetchLoader, copy_strided.
 """
 from __future__ import annotations
 
@@ -27,13 +29,19 @@ _lock = threading.Lock()
 
 
 def _build() -> bool:
+    # build beside the target and rename into place, so concurrent first
+    # uses (test workers) never load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     try:
         subprocess.run(
             ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
-             _SRC, "-o", _SO],
+             _SRC, "-o", tmp],
             check=True, capture_output=True, timeout=120)
+        os.replace(tmp, _SO)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
+        if os.path.exists(tmp):
+            os.remove(tmp)
         return False
 
 

@@ -1,10 +1,9 @@
 """Bit packing / unpacking / popcount utilities.
 
 Reference: base/compv_bits.cxx (logical-op kernels) and the popcount used by
-Hamming distance (base/math/compv_math_distance.cxx:21-34). On TPU there is
-no scalar POPCNT; descriptors are kept in *unpacked* bit-plane form
-(N, 256) u8/int8 whenever they feed the matcher (so Hamming becomes an MXU
-matmul), and packed (N, 32) u8 for storage/serialization parity with the
+Hamming distance (base/math/compv_math_distance.cxx:21-34). Descriptors
+are kept in *unpacked* bit-plane form (N, 256) u8/int8 whenever they feed
+the matcher (so Hamming becomes a matmul), and packed (N, 32) u8 for storage/serialization parity with the
 reference's 32-byte descriptor rows.
 """
 from __future__ import annotations

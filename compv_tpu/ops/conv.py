@@ -3,8 +3,8 @@
 Reference: CompVMathConvlt (base/include/compv/base/math/compv_math_convlt.h:26-98,
 header-only template dispatching to per-ISA SIMD) and CompVMathGauss
 (base/math/compv_math_gauss.cxx). The reference threads row bands with
-overlap; on TPU the whole convolution is one XLA conv_general_dilated (which
-maps onto MXU for wide kernels and fuses for small ones).
+overlap; here the whole convolution is one XLA program: shift-and-add
+for small kernels, conv_general_dilated for wide ones.
 
 Border mode matches the reference's default for its vision kernels: replicate
 is NOT used — CompV uses ZERO or IGNORE (compv_math_convlt.h border modes);
@@ -24,15 +24,18 @@ __all__ = ["gaussian_kernel1d", "gaussian_kernel2d", "convolve_separable",
            "convolve_separable_q16", "gaussian_blur_q16"]
 
 
-def gaussian_kernel1d(size: int, sigma: float) -> jax.Array:
-    """Normalized 1-D Gaussian (reference CompVMathGauss::kernelDim1,
-    used by the ORB descriptor with size=5 sigma=2.0, orb_desc.cxx:119-120)."""
+def _gaussian_np(size: int, sigma: float) -> np.ndarray:
     assert size % 2 == 1
     half = size // 2
     x = np.arange(-half, half + 1, dtype=np.float64)
     k = np.exp(-(x * x) / (2.0 * sigma * sigma))
-    k /= k.sum()
-    return jnp.asarray(k, jnp.float32)
+    return k / k.sum()
+
+
+def gaussian_kernel1d(size: int, sigma: float) -> jax.Array:
+    """Normalized 1-D Gaussian (reference CompVMathGauss::kernelDim1,
+    used by the ORB descriptor with size=5 sigma=2.0, orb_desc.cxx:119-120)."""
+    return jnp.asarray(_gaussian_np(size, sigma), jnp.float32)
 
 
 def gaussian_kernel2d(size: int, sigma: float) -> jax.Array:
@@ -49,7 +52,7 @@ def _pad2d(img_f: jax.Array, ph: int, pw: int, border: str) -> jax.Array:
 
 
 # kernels up to this many taps use the shift-and-add formulation; beyond it
-# the XLA convolution (MXU path) wins
+# the XLA convolution
 _SHIFT_ADD_MAX_TAPS = 31
 
 
@@ -58,10 +61,9 @@ def _conv1d_axis(f: jax.Array, k: jax.Array, axis: int, border: str
     """1-D correlation along ``axis`` (-1 or -2) of (..., H, W) f32 via
     shift-and-add over static slices of one padded buffer.
 
-    Single-channel tiny-kernel convs are a pathological case for the XLA/MXU
-    convolution (measured 27 ms for a 7x7 separable blur at 720p on a v5e
-    chip); k static slices + fused multiply-adds on the VPU run the same
-    blur in ~0.1 ms. Same design as features/fast._strengths_f32."""
+    Single-channel tiny-kernel convs are a poor fit for XLA's general
+    convolution; k static slices + fused multiply-adds are one elementwise
+    pass. Same design as features/fast._strengths_f32."""
     taps = k.shape[0]
     half = taps // 2
     pad = [(0, 0)] * (f.ndim - 2) + [(0, 0), (0, 0)]
@@ -185,7 +187,7 @@ def _q16_pass(img_i32: jax.Array, kern_u16: np.ndarray, axis: int
 def convolve_separable_q16(img: jax.Array, vt_kern: tuple, hz_kern: tuple
                            ) -> jax.Array:
     """Separable fixed-point u8 convolution with Q0.16 u16 kernels —
-    the TPU path of the reference's convlt1FixedPoint
+    the bit-parity twin of the reference's convlt1FixedPoint
     (compv_math_convlt.h:31-34): vertical pass then horizontal pass, each
     per-tap floor-shifted, intermediate stored as u8 like the reference's
     two-pass buffer. Kernels are static tuples of python ints (u16)."""
@@ -202,7 +204,7 @@ def gaussian_blur_q16(img: jax.Array, size: int = 5, sigma: float = 2.0
     """Fixed-point gaussian blur: the bit-parity twin of the reference's
     fixed-point blur path (gaussian kernel -> fixedPointKernel ->
     convlt1FixedPoint)."""
-    k = np.asarray(gaussian_kernel1d(size, sigma))
+    k = _gaussian_np(size, sigma).astype(np.float32)
     kq = tuple(int(v) for v in fixed_point_kernel(k))
     return convolve_separable_q16(img, kq, kq)
 

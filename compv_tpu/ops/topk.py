@@ -1,12 +1,9 @@
-"""Top-k selection tuned for TPU.
+"""Top-k selection.
 
-jax.lax.top_k over ~1M elements lowers to a full sort on TPU (~1.2 ms at
-720p — measured); jax.lax.approx_max_k lowers to the hardware PartialReduce
-op and is ~free (recall ~0.95 at default config). Detection pipelines use
-``select_top_k(..., exact=False)``: on CPU approx_max_k falls back to exact
-(so the golden-test matrix stays bit-deterministic there), on TPU it trades
-a few of the weakest keypoints for a millisecond per frame. Callers that
-need exact semantics pass exact=True.
+Detection pipelines use ``select_top_k(..., exact=False)``, which calls
+jax.lax.approx_max_k. On the CPU and the GPU XLA computes it as the exact
+top-k, so results are bit-deterministic and agree between the two. Callers
+that need exact semantics on every backend pass exact=True (lax.top_k).
 """
 from __future__ import annotations
 
@@ -26,10 +23,7 @@ def select_top_k(x: jax.Array, k: int, exact: bool = False):
 def select_top_k_2d(img_vals: jax.Array, k: int, exact: bool = False):
     """Top-k over a dense 2-D map -> (values (k,), flat indices (k,)).
 
-    Measured on TPU (720p map): letting XLA fuse the producer chain of the
-    map into approx_max_k's operand costs ~5x (163 us vs 33 us per frame) —
-    the partial-reduce consumer forces the producer out of its tiled layout.
-    The optimization_barrier cuts the fusion so the map materializes once in
-    its natural layout and the hardware PartialReduce streams it."""
+    The optimization_barrier keeps XLA from fusing the map's producer
+    chain into the top-k's operand, so the map materializes once."""
     img_vals = jax.lax.optimization_barrier(img_vals)
     return select_top_k(img_vals.astype(jnp.float32).ravel(), k, exact)

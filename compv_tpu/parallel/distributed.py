@@ -24,8 +24,8 @@ def init_distributed(coordinator_address: str | None = None,
     process_count, any computation) — so this function must not probe the
     backend itself; it only try/excepts initialize."""
     if coordinator_address is None:
-        # rely on cluster auto-detection (GKE/Borg envs); if absent this is
-        # a single-process run and nothing needs doing
+        # rely on the cluster environment's auto-detection; if absent this
+        # is a single-process run and nothing needs doing
         try:
             jax.distributed.initialize()
         except Exception:
@@ -42,9 +42,11 @@ def init_distributed(coordinator_address: str | None = None,
 
 
 def global_frame_mesh(axis: str = "frame") -> Mesh:
-    """1-D mesh over every device of every process. Collectives ride ICI
-    within a host and DCN across hosts (keep per-step data local; only
-    reductions cross)."""
+    """1-D mesh over every device of every process. The mesh follows the
+    algorithm alone: the cards of one host are joined all to all (NVLink),
+    so no axis needs to match a physical topology. Across hosts the
+    network is slower, so keep per-step data local and let only
+    reductions cross."""
     return Mesh(np.array(jax.devices()), (axis,))
 
 

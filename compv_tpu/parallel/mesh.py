@@ -1,7 +1,7 @@
 """Device-mesh helpers.
 
 The reference's entire parallelism story is one pinned thread pool
-(base/parallel/compv_threaddisp11.cxx); the TPU framework's is a
+(base/parallel/compv_threaddisp11.cxx); this framework's is a
 jax.sharding.Mesh + shard_map (SURVEY.md §2.6). Axis conventions:
 
   "frame"  — data parallelism over frames/keyframes (dp)

@@ -1,10 +1,12 @@
 """Profiling / tracing / observability helpers.
 
 Reference (SURVEY.md §5): millisecond timers (CompVTime::nowMillis) around
-sections + log-based perf annotations; no real profiler. TPU equivalents:
+sections + log-based perf annotations; no real profiler. Equivalents here:
   * Timer / timed(): wall-clock section timers that block on device work.
   * trace(): context manager around jax.profiler traces (TensorBoard files).
-  * device_memory_stats(): live HBM usage per device.
+  * device_memory_stats(): live device-memory usage per device.
+  * collective_stats(): collective counts and payload bytes of a traced
+    program.
   * log: leveled logger with pluggable sinks (CompVDebugMgr analogue,
     base/include/compv/base/compv_debug.h:32-59).
 """
@@ -16,7 +18,8 @@ from typing import Callable, Dict, List
 
 import jax
 
-__all__ = ["Timer", "timed", "trace", "device_memory_stats", "Log", "log"]
+__all__ = ["Timer", "timed", "trace", "device_memory_stats",
+           "collective_stats", "Log", "log"]
 
 
 class Timer:
@@ -73,6 +76,47 @@ def device_memory_stats() -> List[dict]:
                     "bytes_in_use": s.get("bytes_in_use", -1),
                     "bytes_limit": s.get("bytes_limit", -1)})
     return out
+
+
+_COLLECTIVES = ("psum", "all_gather", "reduce_scatter", "psum_scatter",
+                "ppermute", "all_to_all", "all_reduce")
+
+
+def collective_stats(closed_jaxpr, loop_mult: int = 1):
+    """Count collective primitives and their payload bytes in a traced
+    program (``jax.make_jaxpr(fn)(*args)``). Equations inside while/scan
+    bodies are multiplied by ``loop_mult`` (e.g. a CG trip count) — stated,
+    not guessed. Returns ({primitive: count}, payload bytes)."""
+    from jax.extend import core as jcore
+
+    counts: Dict[str, int] = {}
+    payload = [0]
+
+    def sub_jaxprs(v):
+        if isinstance(v, jcore.ClosedJaxpr):
+            yield v.jaxpr
+        elif isinstance(v, jcore.Jaxpr):
+            yield v
+        elif isinstance(v, (tuple, list)):
+            for x in v:
+                yield from sub_jaxprs(x)
+
+    def visit(jaxpr, mult):
+        for eqn in jaxpr.eqns:
+            name = eqn.primitive.name
+            inner = mult * (loop_mult if name in ("while", "scan") else 1)
+            for v in eqn.params.values():
+                for sub in sub_jaxprs(v):
+                    visit(sub, inner)
+            if name.startswith(_COLLECTIVES):
+                counts[name] = counts.get(name, 0) + mult
+                for iv in eqn.invars:
+                    aval = getattr(iv, "aval", None)
+                    if aval is not None and hasattr(aval, "size"):
+                        payload[0] += mult * aval.size * aval.dtype.itemsize
+
+    visit(closed_jaxpr.jaxpr, 1)
+    return counts, int(payload[0])
 
 
 class Log:

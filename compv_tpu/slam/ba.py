@@ -1,4 +1,4 @@
-"""Bundle adjustment, TPU-native.
+"""Bundle adjustment.
 
 The reference has no BA — its closest machinery is Levenberg-Marquardt over
 calibration params via vendored lmfit (core/calib/compv_core_calib_camera.cxx:1028)
@@ -16,12 +16,9 @@ Design (idiomatic JAX, scaling-book style):
              The Jacobian is linearized ONCE per GN step into explicit
              per-observation 2x6 / 2x3 blocks (obs_jacobian_blocks, one
              vmapped jacfwd pass); each CG matvec is then einsums over
-             those blocks, with the camera-side gather/accumulate running
-             as matmuls against a hoisted (F, O) one-hot on the MXU and
-             the landmark side as a gather + index-add — no reverse-mode
-             AD inside the CG loop, no sparse bookkeeping. 22.8 ms per
-             256-cam/100k-obs/CG=20 step on one v5e (43.8 GN steps/s,
-             727x the AD-scatter formulation it replaced).
+             those blocks with gathers and index-adds on both the camera
+             and the landmark side — no reverse-mode AD inside the CG
+             loop, no sparse bookkeeping.
   * distributed: observations are sharded over the mesh "frame" axis inside
     shard_map; every J^T (.) / J (.) product psums partial results so each
     device holds the full (replicated) parameter update — the classic
@@ -36,6 +33,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+from compv_tpu.precision import geometry
 
 __all__ = ["BAProblem", "BAConfig", "rodrigues_to_matrix", "matrix_to_rodrigues",
            "project_points", "ba_residuals", "ba_solve", "ba_step",
@@ -127,16 +125,17 @@ class BAConfig:
                                 # J^T J + lam, inverted per step. Helps on
                                 # small dense problems (tests/test_ba.py:
                                 # CG=30 quality at 15 iters) but HURTS at
-                                # sparse production scale (measured on
-                                # v5e, 256 cams/100k obs: rmse 0.38 vs
-                                # 0.05 after 10 GN steps — few-observation
-                                # landmark blocks are near-singular and
-                                # the inverse amplifies their noise), so
-                                # it stays opt-in. Supported in ba_step
+                                # sparse production scale (256 cams/100k
+                                # obs: rmse 0.38 vs 0.05 after 10 GN
+                                # steps — few-observation landmark
+                                # blocks are near-singular and the
+                                # inverse amplifies their noise), so it
+                                # stays opt-in. Supported in ba_step
                                 # (incl. psum mode); the reduce-scatter
                                 # variant ignores it.
 
 
+@geometry
 def project_points(cameras: jax.Array, landmarks: jax.Array,
                    intrinsics: jax.Array, cam_idx: jax.Array,
                    lm_idx: jax.Array) -> jax.Array:
@@ -154,6 +153,7 @@ def project_points(cameras: jax.Array, landmarks: jax.Array,
     return jnp.stack([u, v], axis=1)
 
 
+@geometry
 def ba_residuals(cameras: jax.Array, landmarks: jax.Array, prob: BAProblem
                  ) -> jax.Array:
     """(O, 2) masked reprojection residuals. First camera is gauge-fixed by
@@ -172,16 +172,15 @@ def reproj_rmse(prob: BAProblem) -> jax.Array:
 
 # ----------------------------------------------------------------- blocks
 
+@geometry
 def obs_jacobian_blocks(cameras, landmarks, intrinsics, cam_idx, lm_idx,
-                        uv, valid, onehot_c=None):
+                        uv, valid):
     """Per-observation residual + Jacobian blocks: r (O,2), A = dr/dcam
     (O,2,6), B = dr/dlm (O,2,3), zeroed at invalid observations. One
     vmapped jacfwd over the 9 parameters each observation touches — a
     single fused elementwise pass, computed ONCE per GN step, so the CG
-    loop never re-traces AD (r3 fix: the old jvp/vjp-per-matvec path
-    re-linearized the whole residual every CG iteration and its vjp
-    lowered to TPU-hostile giant scatter graphs). ``onehot_c`` reuses the
-    step's camera one-hot for the (O, 6) parameter gather."""
+    loop never re-traces AD (a jvp/vjp per matvec would re-linearize the
+    whole residual every CG iteration)."""
 
     def one(cam, lm, uv1):
         def f(c, x):
@@ -193,10 +192,7 @@ def obs_jacobian_blocks(cameras, landmarks, intrinsics, cam_idx, lm_idx,
             return jnp.stack([u, v]) - uv1
         return f(cam, lm), jax.jacfwd(f, 0)(cam, lm), jax.jacfwd(f, 1)(cam, lm)
 
-    cams_o = (cameras[cam_idx] if onehot_c is None
-              else _mm_exact(onehot_c.T, cameras))
-    lms_o = landmarks[lm_idx]
-    r, a, b = jax.vmap(one)(cams_o, lms_o, uv)
+    r, a, b = jax.vmap(one)(cameras[cam_idx], landmarks[lm_idx], uv)
     m2 = valid[:, None]
     m3 = valid[:, None, None]
     return (jnp.where(m2, r, 0.0), jnp.where(m3, a, 0.0),
@@ -229,7 +225,7 @@ def _gauge_mask(f: int, l: int, cfg: BAConfig, dtype,
     return _flatten(cam_m, lm_m)
 
 
-def _linearize(prob: BAProblem, cfg: BAConfig, onehot_c=None):
+def _linearize(prob: BAProblem, cfg: BAConfig):
     """Entry residuals + Jacobian blocks for one GN step, IRLS-whitened
     when cfg.robust_delta > 0 (Cauchy-like weights w = delta /
     sqrt(delta^2 + |r|^2) from the step's entry residuals, FROZEN for the
@@ -237,8 +233,7 @@ def _linearize(prob: BAProblem, cfg: BAConfig, onehot_c=None):
     B (O,2,3), w (O,)); all already valid-masked."""
     r, a, b = obs_jacobian_blocks(prob.cameras, prob.landmarks,
                                   prob.intrinsics, prob.cam_idx,
-                                  prob.lm_idx, prob.uv, prob.valid,
-                                  onehot_c)
+                                  prob.lm_idx, prob.uv, prob.valid)
     if cfg.robust_delta <= 0:
         return r, a, b, None
     d2 = jnp.asarray(cfg.robust_delta, r.dtype) ** 2
@@ -246,14 +241,11 @@ def _linearize(prob: BAProblem, cfg: BAConfig, onehot_c=None):
     return (r * w[:, None], a * w[:, None, None], b * w[:, None, None], w)
 
 
-_ONEHOT_BYTES_CAP = 256 << 20   # skip the camera one-hot above 256 MB
-
-
 def inv3x3_spd(m):
     """Batched closed-form (adjugate) 3x3 inverse for damped SPD blocks
-    (det > 0 by construction). Pure elementwise VPU math — jnp.linalg.inv
-    would lower to a batched LU, which serializes badly on TPU at
-    L ~ 2e4. Shared by the Schur solver and the PCG preconditioner."""
+    (det > 0 by construction). Pure elementwise math — jnp.linalg.inv
+    would lower to a batched LU of 3x3 blocks at L ~ 2e4. Shared by the
+    Schur solver and the PCG preconditioner."""
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
     d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
     g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
@@ -270,67 +262,19 @@ def inv3x3_spd(m):
     return adj * inv_det[..., None, None]
 
 
-def _residuals_o(cams, lms, prob: BAProblem, onehot_c):
-    """ba_residuals with the camera gather routed through the step's
-    one-hot matmul (identical math; see _cam_onehot)."""
-    if onehot_c is None:
-        return ba_residuals(cams, lms, prob)
-    cams_o = _mm_exact(onehot_c.T, cams)             # (O, 6)
-    lms_o = lms[prob.lm_idx]
-    rm = jax.vmap(rodrigues_to_matrix)(cams_o[:, :3])
-    pc = jnp.einsum("oij,oj->oi", rm, lms_o) + cams_o[:, 3:]
-    z = jnp.where(jnp.abs(pc[:, 2]) < 1e-9, 1e-9, pc[:, 2])
-    u = prob.intrinsics[0] * pc[:, 0] / z + prob.intrinsics[2]
-    v = prob.intrinsics[1] * pc[:, 1] / z + prob.intrinsics[3]
-    r = jnp.stack([u, v], axis=1) - prob.uv
-    return jnp.where(prob.valid[:, None], r, 0.0)
-
-
-# gather-by-matmul contractions run at Precision.HIGHEST: the default TPU
-# f32 dot truncates operands to bf16 on the MXU (~8 mantissa bits), which
-# would round camera parameters / J^T u accumulations every CG matvec and
-# silently break the 'exact gather' contract these matmuls replace
-# (r4 ADVICE). The one-hot streams from HBM either way, so the extra MXU
-# passes are hidden behind the memory traffic.
-def _mm_exact(a, b):
-    return jnp.matmul(a, b, precision=jax.lax.Precision.HIGHEST)
-
-
-def _cam_onehot(cam_idx, f: int, dtype):
-    """(F, O) camera one-hot, or None when it would exceed the memory cap.
-    Replacing the camera-side gather/scatter-add with matmuls against this
-    (loop-invariant, so XLA hoists the build out of the CG loop) measures
-    2x per CG matvec at O=1e5/F=256 on v5e — TPU gathers/scatters cost
-    ~5 ns/row-element while the MXU streams the one-hot at HBM rate."""
-    o = cam_idx.shape[0]
-    if jax.default_backend() != "tpu":
-        return None      # CPU matmuls against a 100 MB one-hot lose to
-                         # its gather/scatter; the trick is MXU-shaped
-    if f * o * jnp.dtype(dtype).itemsize > _ONEHOT_BYTES_CAP:
-        return None
-    return (cam_idx[None, :] == jnp.arange(f)[:, None]).astype(dtype)
-
-
-def _jv(a, b, cam_idx, lm_idx, dc, dl, onehot_c=None):
+def _jv(a, b, cam_idx, lm_idx, dc, dl):
     """J v: per-obs 2x6 / 2x3 block products against the gathered camera /
-    landmark updates. The camera gather runs as onehot^T @ dc on the MXU
-    when the one-hot fits (gather-by-matmul, exact)."""
-    dc_o = dc[cam_idx] if onehot_c is None else _mm_exact(onehot_c.T, dc)
-    return (jnp.einsum("oij,oj->oi", a, dc_o) +
+    landmark updates."""
+    return (jnp.einsum("oij,oj->oi", a, dc[cam_idx]) +
             jnp.einsum("oik,ok->oi", b, dl[lm_idx]))
 
 
-def _jtu(a, b, cam_idx, lm_idx, u, f, l, onehot_c=None):
-    """J^T u: per-obs block products accumulated into the (F,6)/(L,3)
-    parameter tables — camera side as one matmul against the one-hot when
-    available, landmark side as an index-add (an (L,O) one-hot would not
-    fit; the landmark scatter is the remaining indexed op per matvec)."""
+def _jtu(a, b, cam_idx, lm_idx, u, f, l):
+    """J^T u: per-obs block products index-added into the (F,6)/(L,3)
+    parameter tables."""
     dt = u.dtype
-    au = jnp.einsum("oij,oi->oj", a, u)
-    if onehot_c is None:
-        gc = jnp.zeros((f, 6), dt).at[cam_idx].add(au)
-    else:
-        gc = _mm_exact(onehot_c, au)
+    gc = jnp.zeros((f, 6), dt).at[cam_idx].add(
+        jnp.einsum("oij,oi->oj", a, u))
     gl = jnp.zeros((l, 3), dt).at[lm_idx].add(
         jnp.einsum("oik,oi->ok", b, u))
     return gc, gl
@@ -362,6 +306,7 @@ def _cg(matvec, b, iters: int, precond=None):
     return x
 
 
+@geometry
 def ba_step(prob: BAProblem, lam: jax.Array, cfg: BAConfig,
             psum_axis: str | None = None, cam_mask=None):
     """One damped-GN step. Returns (new BAProblem, new lambda, cost_before).
@@ -370,8 +315,7 @@ def ba_step(prob: BAProblem, lam: jax.Array, cfg: BAConfig,
     LINEARIZED ONCE per step into explicit per-observation blocks
     (obs_jacobian_blocks) instead of re-running jvp/vjp through the
     projection every CG iteration: each CG matvec is then two gathers, four
-    small einsums and two index-adds (r3 VERDICT task 1 — the AD-scatter
-    path it replaces could lower pathologically under the TPU runtime).
+    small einsums and two index-adds.
 
     When ``psum_axis`` is given the function is being traced inside shard_map
     with observations sharded along that axis: every J/Jt product and the
@@ -386,31 +330,26 @@ def ba_step(prob: BAProblem, lam: jax.Array, cfg: BAConfig,
     def psum(x):
         return jax.lax.psum(x, psum_axis) if psum_axis is not None else x
 
-    ohc = _cam_onehot(prob.cam_idx, f, dtype)
-    r0, a, b, w = _linearize(prob, cfg, ohc)
+    r0, a, b, w = _linearize(prob, cfg)
     cost = psum(jnp.sum(r0 * r0))
 
     def jt(u):
-        gc, gl = _jtu(a, b, prob.cam_idx, prob.lm_idx, u, f, l, ohc)
+        gc, gl = _jtu(a, b, prob.cam_idx, prob.lm_idx, u, f, l)
         return psum(_flatten(gc * mc, gl * ml))
 
     def jtj_mv(v):
         vm = v * mask
         dc, dl = _unflatten(vm, f, l)
-        return jt(_jv(a, b, prob.cam_idx, prob.lm_idx, dc, dl, ohc)) \
+        return jt(_jv(a, b, prob.cam_idx, prob.lm_idx, dc, dl)) \
             + lam * vm
 
     precond = None
     if cfg.precondition:
         # block-Jacobi preconditioner: the diagonal 6x6 / 3x3 blocks of
-        # J^T J + lam, inverted once per step (camera side assembled via
-        # the one-hot matmul when available). The gauge-fixed camera-0
+        # J^T J + lam, inverted once per step. The gauge-fixed camera-0
         # block is masked anyway; lam > 0 keeps every block SPD.
         aa = jnp.einsum("oia,oib->oab", a, a).reshape(-1, 36)
-        if ohc is None:
-            hcc = jnp.zeros((f, 36), dtype).at[prob.cam_idx].add(aa)
-        else:
-            hcc = ohc @ aa
+        hcc = jnp.zeros((f, 36), dtype).at[prob.cam_idx].add(aa)
         bb2 = jnp.einsum("oia,oib->oab", b, b).reshape(-1, 9)
         hll = jnp.zeros((l, 9), dtype).at[prob.lm_idx].add(bb2)
         hcc = psum(hcc).reshape(f, 6, 6) + lam * jnp.eye(6, dtype=dtype)
@@ -428,7 +367,7 @@ def ba_step(prob: BAProblem, lam: jax.Array, cfg: BAConfig,
     dx = _cg(jtj_mv, -g, cfg.cg_iterations, precond)
     x1 = _flatten(prob.cameras, prob.landmarks) + dx * mask
     cams1, lms1 = _unflatten(x1, f, l)
-    r1 = _residuals_o(cams1, lms1, prob, ohc)
+    r1 = ba_residuals(cams1, lms1, prob)
     if w is not None:
         r1 = r1 * w[:, None]
     cost1 = psum(jnp.sum(r1 * r1))
@@ -441,6 +380,7 @@ def ba_step(prob: BAProblem, lam: jax.Array, cfg: BAConfig,
     return new_prob, lam_new, cost
 
 
+@geometry
 def ba_step_reduce_scatter(prob: BAProblem, lam: jax.Array, cfg: BAConfig,
                            axis: str):
     """One damped-GN step with the CG state SHARDED over ``axis`` — the
@@ -469,12 +409,11 @@ def ba_step_reduce_scatter(prob: BAProblem, lam: jax.Array, cfg: BAConfig,
     def shard_of(v_full):
         return jax.lax.dynamic_slice(pad_v(v_full), (my * chunk,), (chunk,))
 
-    ohc = _cam_onehot(prob.cam_idx, f, dtype)
-    r0, a, bb, w = _linearize(prob, cfg, ohc)
+    r0, a, bb, w = _linearize(prob, cfg)
     cost = jax.lax.psum(jnp.sum(r0 * r0), axis)
 
     def jt_local(u):
-        gc, gl = _jtu(a, bb, prob.cam_idx, prob.lm_idx, u, f, l, ohc)
+        gc, gl = _jtu(a, bb, prob.cam_idx, prob.lm_idx, u, f, l)
         return _flatten(gc * mc, gl * ml)           # partial (local obs)
 
     def gather_full(v_shard):
@@ -491,7 +430,7 @@ def ba_step_reduce_scatter(prob: BAProblem, lam: jax.Array, cfg: BAConfig,
         v_full = gather_full(v_shard)
         vm = v_full * mask
         dc, dl = _unflatten(vm, f, l)
-        jv = _jv(a, bb, prob.cam_idx, prob.lm_idx, dc, dl, ohc)
+        jv = _jv(a, bb, prob.cam_idx, prob.lm_idx, dc, dl)
         jtjv_shard = jax.lax.psum_scatter(pad_v(jt_local(jv)), axis,
                                           tiled=True)
         return jtjv_shard + lam * shard_of(vm)
@@ -520,7 +459,7 @@ def ba_step_reduce_scatter(prob: BAProblem, lam: jax.Array, cfg: BAConfig,
     dx = gather_full(x_sh)
     x1 = _flatten(prob.cameras, prob.landmarks) + dx * mask
     cams1, lms1 = _unflatten(x1, f, l)
-    r1 = _residuals_o(cams1, lms1, prob, ohc)
+    r1 = ba_residuals(cams1, lms1, prob)
     if w is not None:
         r1 = r1 * w[:, None]
     cost1 = jax.lax.psum(jnp.sum(r1 * r1), axis)
@@ -532,6 +471,7 @@ def ba_step_reduce_scatter(prob: BAProblem, lam: jax.Array, cfg: BAConfig,
 
 
 @partial(jax.jit, static_argnames=("cfg",))
+@geometry
 def ba_solve(prob: BAProblem, cfg: BAConfig = BAConfig(), cam_mask=None):
     """Full damped-GN loop (single shard). Returns (problem, final_cost).
     ``cam_mask`` (F,) bool freezes the False cameras (windowed BA)."""

@@ -5,8 +5,8 @@ camera system": landmarks are eliminated analytically (their 3x3 Hessian
 blocks invert in closed form) and the reduced camera system
 S = Hcc - W Hll^-1 W^T is solved densely.
 
-TPU formulation (r3 VERDICT task 3 — the old code materialized W as a dense
-(F, L, 6, 3) array, ~368 MB at 256 cams / 20k landmarks):
+Formulation (W is never materialized as a dense (F, L, 6, 3) array, which
+would be ~368 MB at 256 cams / 20k landmarks):
 
   * observations are grouped per landmark through a padded (L, K) index
     table built from one sort + searchsorted + gather (K = max obs per
@@ -15,11 +15,10 @@ TPU formulation (r3 VERDICT task 3 — the old code materialized W as a dense
     substitution are pure dense einsums with no scatters;
   * the reduced system S = Hcc - sum_l W_l Y_l W_l^T is accumulated over
     landmark CHUNKS inside a lax.scan: each chunk builds its (Lc, K, F)
-    camera one-hot and contracts W_chunk/Z_chunk against each other on the
-    MXU, so peak memory is O(Lc*F*18 + F^2*36), never O(F*L*18);
-  * Hcc and gc are single index-adds over observations (measured ~30 us at
-    O=1e5 on v5e — cheap when done once per step, the pathology the r2/r3
-    verdicts flagged was per-CG-iteration AD scatters, not one scatter).
+    camera one-hot and contracts W_chunk/Z_chunk against each other as
+    matmuls, so peak memory is O(Lc*F*18 + F^2*36), never O(F*L*18);
+  * Hcc and gc are single index-adds over observations, done once per
+    step.
 
 Distributed: every accumulated term is a sum over observations, so
 sharding observations and psumming partials reproduces the dense system
@@ -41,6 +40,7 @@ import numpy as np
 
 from compv_tpu.slam.ba import (BAProblem, ba_residuals,
                                inv3x3_spd, obs_jacobian_blocks)
+from compv_tpu.precision import geometry
 
 __all__ = ["SchurConfig", "ba_step_schur", "ba_solve_schur",
            "max_obs_per_landmark"]
@@ -83,6 +83,7 @@ def _obs_of_lm_table(lm_idx, valid, l: int, k: int, o: int):
     return jnp.where(in_seg, order_pad[jnp.minimum(pos, o)], o), counts
 
 
+@geometry
 def ba_step_schur(prob: BAProblem, lam: jax.Array, cfg: SchurConfig,
                   psum_axis: str | None = None, *, max_obs_per_lm: int = 16,
                   cam_mask=None):
@@ -117,7 +118,7 @@ def ba_step_schur(prob: BAProblem, lam: jax.Array, cfg: SchurConfig,
     # landmark-side observation table, built first so the camera-side
     # index-adds can exclude observations the static cap `k` drops —
     # otherwise Hcc/gc would include terms the Hll/W side never saw and
-    # the normal equations would be silently inconsistent (r4 ADVICE)
+    # the normal equations would be silently inconsistent
     table, counts = _obs_of_lm_table(prob.lm_idx, prob.valid, l, k, o)
     kept = jnp.zeros((o + 1,), bool).at[table.ravel()].set(True)[:o]
     jc_k = jnp.where(kept[:, None, None], jc, 0.0)
@@ -166,7 +167,7 @@ def ba_step_schur(prob: BAProblem, lam: jax.Array, cfg: SchurConfig,
         onehot = (cc[:, :, None] ==
                   jnp.arange(f)[None, None, :]).astype(dtype)  # (lc, K, F)
         # one-hot contractions are gathers-by-matmul: HIGHEST keeps them
-        # exact (default TPU dot truncates the f32 blocks to bf16)
+        # exact (a default-precision f32 dot may round the blocks)
         w_ch = jnp.einsum("pkf,pkab->pfab", onehot, uc,
                           precision=jax.lax.Precision.HIGHEST)
         z_ch = jnp.einsum("pkf,pkab->pfab", onehot, zc,
@@ -176,13 +177,12 @@ def ba_step_schur(prob: BAProblem, lam: jax.Array, cfg: SchurConfig,
             # W Y W^T is bilinear — reduce BEFORE the outer product
             w_ch = jax.lax.psum(w_ch, psum_axis)
             z_ch = jax.lax.psum(z_ch, psum_axis)
-        # the W Y W^T products are real arithmetic (not gathers): HIGH
-        # (bf16x3, ~f32-grade mantissa) keeps the reduced system honest
-        # at 3 MXU passes instead of HIGHEST's 6
-        s_acc = s_acc - jnp.einsum("pfab,pgcb->fagc", z_ch, w_ch,
-                                   precision=jax.lax.Precision.HIGH)
-        rhs_acc = rhs_acc - jnp.einsum("pfab,pb->fa", z_ch, glc,
-                                       precision=jax.lax.Precision.HIGH)
+        # the W Y W^T products are real arithmetic: they run at the
+        # library's f32 policy (compv_tpu/precision.py); at HIGH the
+        # H100's reduced-precision passes left the first step's cost 0.65%
+        # above the CPU's (256 cams / 20k landmarks)
+        s_acc = s_acc - jnp.einsum("pfab,pgcb->fagc", z_ch, w_ch)
+        rhs_acc = rhs_acc - jnp.einsum("pfab,pb->fa", z_ch, glc)
         return (s_acc, rhs_acc), None
 
     s0 = jnp.zeros((f, 6, f, 6), dtype)
@@ -213,8 +213,8 @@ def ba_step_schur(prob: BAProblem, lam: jax.Array, cfg: SchurConfig,
     rhs_c = rhs_c * keep[:, None]
 
     # S is symmetric positive definite after damping + gauge pinning:
-    # Cholesky solve (jnp.linalg.solve would LU-factor, ~2x the flops and
-    # a less TPU-friendly pivoted factorization)
+    # Cholesky solve (jnp.linalg.solve would LU-factor: ~2x the flops and
+    # a pivoted factorization)
     s_mat = s.transpose(0, 2, 1, 3).reshape(6 * f, 6 * f)
     chol = jax.scipy.linalg.cho_factor(s_mat)
     dx_c = -jax.scipy.linalg.cho_solve(
@@ -240,6 +240,7 @@ def ba_step_schur(prob: BAProblem, lam: jax.Array, cfg: SchurConfig,
 
 
 @partial(jax.jit, static_argnames=("cfg", "max_obs_per_lm"))
+@geometry
 def _solve_jit(prob, cfg, max_obs_per_lm, cam_mask=None):
     def body(_, state):
         p, lam, _ = state

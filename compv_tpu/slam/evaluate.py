@@ -10,10 +10,12 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+from compv_tpu.precision import geometry
 
 __all__ = ["umeyama_alignment", "ate_rmse", "rpe_rmse"]
 
 
+@geometry
 def umeyama_alignment(est: jax.Array, gt: jax.Array, with_scale: bool = True):
     """Least-squares similarity aligning est -> gt. (N, 3) each.
     Returns (scale, R (3,3), t (3,))."""

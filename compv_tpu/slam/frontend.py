@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from compv_tpu.calib.homography import HomographyConfig, find_homography
 from compv_tpu.features.orb import OrbConfig, orb_detect_describe
 from compv_tpu.matchers.bruteforce import knn_match, ratio_test
+from compv_tpu.precision import geometry
 
 __all__ = ["FrontendConfig", "PairResult", "match_pair", "detect_describe"]
 
@@ -44,6 +45,7 @@ def detect_describe(img: jax.Array, config: FrontendConfig = FrontendConfig()):
 
 
 @partial(jax.jit, static_argnames=("config",))
+@geometry
 def match_pair(img1: jax.Array, img2: jax.Array,
                config: FrontendConfig = FrontendConfig()) -> PairResult:
     r1 = orb_detect_describe(img1, config.orb)

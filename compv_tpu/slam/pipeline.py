@@ -19,6 +19,7 @@ from compv_tpu.calib.homography import HomographyConfig, find_homography
 from compv_tpu.features.orb import OrbConfig, OrbResult, orb_detect_describe
 from compv_tpu.matchers.bruteforce import knn_match, ratio_test
 from compv_tpu.slam.ba import matrix_to_rodrigues
+from compv_tpu.precision import geometry
 
 __all__ = ["PlanarTrackerConfig", "PlanarTrackResult", "track_planar_sequence",
            "KeyframeStore", "decompose_homography"]
@@ -50,6 +51,7 @@ def _pair_homography_step(desc1, valid1, x1, y1, desc2, valid2, x2, y2,
     return res.h, res.num_inliers, jnp.sum(ok)
 
 
+@geometry
 def track_planar_sequence(frames, config: PlanarTrackerConfig = PlanarTrackerConfig()
                           ) -> PlanarTrackResult:
     """Track a planar scene: frame0 is the template; every frame is matched
@@ -96,6 +98,7 @@ def track_planar_sequence(frames, config: PlanarTrackerConfig = PlanarTrackerCon
     return PlanarTrackResult(h_to_first=hs, num_inliers=inl, tracked=tracked)
 
 
+@geometry
 def decompose_homography(h: jax.Array, k: jax.Array):
     """Planar H = K (R + t n^T / d) K^-1 decomposition (Malis-Vargas style,
     returning the physically-plausible normalized solution): gives (rvec,

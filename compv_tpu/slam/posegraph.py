@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 
 from compv_tpu.slam.ba import matrix_to_rodrigues, rodrigues_to_matrix
+from compv_tpu.precision import geometry
 
 __all__ = ["PoseGraph", "PoseGraphConfig", "compose", "invert",
            "relative_pose", "optimize_pose_graph"]
@@ -83,6 +84,7 @@ def _edge_residual(pose_i, pose_j, meas):
     return jnp.concatenate([rot_res, t_err])
 
 
+@geometry
 def graph_residuals(poses: jax.Array, graph: PoseGraph) -> jax.Array:
     pi = poses[graph.edge_i]
     pj = poses[graph.edge_j]
@@ -103,6 +105,7 @@ def _edge_residual_mat(r_i, t_i, r_j, t_j, meas):
 
 
 @partial(jax.jit, static_argnames=("config",))
+@geometry
 def optimize_pose_graph(graph: PoseGraph,
                         config: PoseGraphConfig = PoseGraphConfig()):
     """Damped GN with CG on LOCAL pose increments; pose 0 gauge-fixed.

@@ -40,6 +40,7 @@ from compv_tpu.slam.ba import (
     rodrigues_to_matrix,
 )
 from compv_tpu.slam.evaluate import ate_rmse
+from compv_tpu.precision import geometry
 
 __all__ = ["SfmConfig", "SfmResult", "render_orbit_sequence", "run_sfm"]
 
@@ -173,6 +174,7 @@ def _match_step(desc1, valid1, desc2, valid2, ratio: float):
 
 
 @jax.jit
+@geometry
 def _triangulate_pair(cam1, cam2, px1, px2, kinv):
     """Two-view triangulation with arbitrary known poses: normalize pixels,
     move to cam1 frame (relative pose), DLT-triangulate, map to world."""
@@ -220,6 +222,7 @@ def _dedup_matches(tidx: np.ndarray, dist: np.ndarray, ok: np.ndarray
     return ok
 
 
+@geometry
 def run_sfm(frames: np.ndarray, k: np.ndarray,
             config: SfmConfig = SfmConfig(),
             checkpoint_dir: str | None = None) -> SfmResult:
@@ -661,6 +664,7 @@ def _finalize_sfm(cams, landmarks, lm_valid, ob_ci, ob_li, ob_uv, ob_ok,
                      frame_stats=frame_stats)
 
 
+@geometry
 def resume_sfm(checkpoint_path: str, config: SfmConfig = SfmConfig(),
                mesh=None) -> SfmResult:
     """Resume an SfM run from a checkpoint written by run_sfm(...,

@@ -2,7 +2,7 @@
 
 Replaces the reference's GL render stack (gl/ — texture upload + GLSL
 conversion + FBO surface layers, SURVEY.md §2.5) and Skia canvas
-(drawing/compv_drawing_canvas_skia.cxx). A TPU framework has no GPU window;
+(drawing/compv_drawing_canvas_skia.cxx). A headless compute host has no window;
 the idiomatic equivalents are (a) pure-numpy rasterization into RGB arrays
 (headless, dependency-free — good for dumping PNGs from jobs) and (b)
 matplotlib figures for interactive/debug use. The side-by-side match

@@ -4,7 +4,7 @@ windowed demo loop.
 Reference: the drawing layer runs camera -> process -> GL window at frame
 rate behind an event loop (drawing/compv_drawing.cxx:74-90 event pump;
 drawing/compv_drawing_window_sdl.cxx / gl/compv_gl_window.cxx surfaces).
-A TPU host has no display server, so the equivalent surface here is a
+A headless compute host has no display server, so the equivalent surface here is a
 browser: an MJPEG (multipart/x-mixed-replace) HTTP endpoint that any
 browser or `ffplay http://host:port/` renders as live video, fed by the
 same start/stop camera lifecycle (io/camera.py) the reference's capture
@@ -171,8 +171,7 @@ def run_live(camera, process: Callable[[np.ndarray], np.ndarray],
     try:
         deadline = None if seconds is None else t0 + seconds
         # wake on EITHER the frame-count/deadline signal or the camera's
-        # capture loop exiting (file/synthetic cameras exhaust; r4 ADVICE:
-        # run_live used to block past exhaustion)
+        # capture loop exiting (file/synthetic cameras exhaust)
         while not done.is_set() and not camera.finished.is_set():
             step = 0.1 if deadline is None else \
                 max(0.0, min(0.1, deadline - time.perf_counter()))

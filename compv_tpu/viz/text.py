@@ -1,7 +1,7 @@
 """Bitmap text rendering for annotations.
 
 Replaces the reference's freetype GL text layer
-(gl/compv_gl_freetype.cxx + drawing text canvas) for the headless TPU
+(gl/compv_gl_freetype.cxx + drawing text canvas) for a headless
 host: a hand-authored 5x7 pixel font rasterized straight into the RGB
 canvas. No external font files, no GL — labels on dumped PNG/video
 artifacts is the product need, not typography.

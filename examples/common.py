@@ -1,16 +1,19 @@
-"""Shared helpers for the example scripts: CPU-friendly setup + synthetic
-scenes (no binary fixtures in-repo, mirroring tests/)."""
+"""Shared helpers for the example scripts: setup + synthetic scenes (no
+binary fixtures in-repo, mirroring tests/).
+
+Examples run on JAX's default backend — the GPU where there is one. To run
+them on the CPU, set JAX_PLATFORMS=cpu (and, for the multi-device examples,
+XLA_FLAGS=--xla_force_host_platform_device_count=8)."""
 import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("EXAMPLES_TPU") != "1":
-    os.environ.setdefault("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
-    import jax
-    jax.config.update("jax_platforms", "cpu")
+import numpy as np  # noqa: E402
 
-import numpy as np
+from compv_tpu.device import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 
 def textured_scene(h=240, w=320, seed=5):

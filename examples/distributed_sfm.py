@@ -1,8 +1,9 @@
 """Distributed SfM demo: sharded per-frame detection, cross-shard descriptor
 matching, and a distributed BA solve on the device mesh (BASELINE config 5).
 
-Runs on the virtual 8-device CPU mesh by default; on a real multi-chip TPU
-slice the same code rides ICI (set EXAMPLES_TPU=1).
+Runs on every device of JAX's default backend: all the GPUs of the host,
+or, with JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8,
+a virtual 8-device CPU mesh.
 """
 import numpy as np
 

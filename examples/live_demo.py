@@ -2,7 +2,7 @@
 
 The reference's flagship demos open an SDL/GL window and render the
 processed camera feed at frame rate (drawing/compv_drawing_window_sdl.cxx,
-samples in the reference tree); on a headless TPU host the window is a
+samples in the reference tree); on a headless host the window is a
 browser pointed at the MJPEG endpoint this script serves.
 
     python examples/live_demo.py [--seconds 30] [--port 8080]

@@ -1,6 +1,6 @@
 // compv_tpu native runtime: aligned memory pool + prefetching frame loader.
 //
-// TPU-native analogue of the reference's C++ runtime layer:
+// Host-side analogue of the reference's C++ runtime layer:
 //   * CompVMem aligned alloc / pool reuse  (base/compv_mem.cxx,
 //     base/include/compv/base/compv_mem.h:36-91)
 //   * capture/IO threads feeding the pipeline (camera plugins,

@@ -3,7 +3,7 @@
 The reference's whole test philosophy is golden values checked into the
 tree: FAST count/Σstrength/Σx/Σy tables (unittests/feature_fast.cxx:18-60)
 and MD5s of output buffers (tests/tests_common.cxx:98-116). This script
-locks the same style of values for the TPU framework on the CPU backend
+locks the same style of values for this framework on the CPU backend
 (the deterministic test platform); tests/test_goldens.py asserts them.
 
 Regenerate ONLY when an intentional semantic change is made:
@@ -81,7 +81,7 @@ def build() -> dict:
     g["homography_hash_q2"] = quantized_hash(hm, decimals=2)
     g["homography_inliers"] = int(res.num_inliers)
 
-    # --- irregular kernels (r5 VERDICT task 5): CCL / SHT / MSER / BA
+    # --- irregular kernels: CCL / SHT / MSER / BA
     # golden tuples for the determinism matrix's resharding axis
     from compv_tpu.core.golden import ccl_summary, lines_summary, mser_summary
     from compv_tpu.features.canny import CannyConfig, canny
@@ -159,7 +159,7 @@ def build_sfm() -> dict:
 
 
 def build_sfm_long() -> dict:
-    """Longer/harder golden (VERDICT r2 task 6b): 32 frames at 480p with
+    """Longer/harder golden: 32 frames at 480p with
     RPE. Gated behind --sfm-long. Writes goldens/sfm_long.json."""
     from compv_tpu.slam.sfm import SfmConfig
     cfg = SfmConfig(max_obs=65536, max_landmarks=8192)
@@ -167,7 +167,7 @@ def build_sfm_long() -> dict:
 
 
 def sfm_128_config():
-    """The 128-frame production-shaped run (r5 VERDICT task 4): Schur
+    """The 128-frame production-shaped run: Schur
     solver, sliding-window local BA (8 frames, frozen-camera anchor
     observations), periodic checkpoints — exercises ba_step_schur,
     camera freezing, landmark capacity and checkpoint cadence at

@@ -1,11 +1,16 @@
 #!/usr/bin/env bash
-# 2-process multi-host smoke test (VERDICT r2 task 10).
+# 2-process multi-host smoke test.
 #
 # Spawns two CPU processes, each with 4 virtual devices; jax.distributed
 # joins them into one 8-device global mesh. Asserts sharded_detect and one
 # distributed BA step match single-process compute. This is the scaled-down
-# rehearsal of the real pod recipe (same init, same mesh, same collectives
-# — DCN replaced by localhost gRPC).
+# rehearsal of a multi-host run (same init, same mesh, same collectives —
+# the network replaced by localhost gRPC).
+#
+# Both processes stay pinned to CPU devices (scripts/multihost_worker.py
+# sets JAX_PLATFORMS=cpu), so they never share a GPU: a JAX process
+# reserves most of a card's memory, and a second process on that card
+# would fail. On GPUs, run one process per card.
 #
 # Usage: bash scripts/multihost_smoke.sh [port]
 set -euo pipefail

@@ -1,8 +1,9 @@
-"""One process of the 2-process multi-host smoke test (VERDICT r2 task 10).
+"""One process of the 2-process multi-host smoke test.
 
 Run via scripts/multihost_smoke.sh — each process owns 4 virtual CPU
-devices; jax.distributed glues them into one 8-device global mesh (the
-exact recipe a real multi-host TPU pod uses, scaled down to CPU).
+devices (pinned to the CPU even on a GPU host, so the two processes never
+contend for one card); jax.distributed glues them into one 8-device global
+mesh (the recipe a multi-host run uses, scaled down to CPU).
 
 What it proves end-to-end:
   * parallel/distributed.py init_distributed / global_frame_mesh /

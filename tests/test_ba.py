@@ -252,7 +252,7 @@ class TestSchurBA:
 @pytest.mark.slow
 class TestSchurScale:
     def test_schur_at_production_scale(self):
-        """r3 VERDICT task 3 'Done' bar: the Schur path must run at
+        """The Schur path must run at
         256 cams / 20k landmarks / 100k obs — the scale where the old
         dense (F, L, 6, 3) W was ~368 MB before any einsum. The chunked
         assembly peaks at O(lm_chunk*F*18 + F^2*36) instead."""

@@ -215,7 +215,7 @@ class TestMserFidelity:
     """Acceptance vs a full-resolution SEQUENTIAL oracle (the reference's
     LMSER semantics: one-sided variation at +delta, local-min stability,
     min-diversity pruning — lmser_result.h:91-199), bounding the divergence
-    introduced by the TPU ladder sampling."""
+    introduced by the gray-level ladder sampling."""
 
     @staticmethod
     def _oracle(img, delta=5, min_area=0.0002, max_area=0.5,
@@ -419,3 +419,19 @@ class TestHogLut:
         # same LUT cell -> same bin weights; magnitudes differ slightly
         nz1, nz2 = d1.ravel() != 0, d2.ravel() != 0
         assert (nz1 == nz2).all()
+
+
+def test_mser_variation_fixed_point():
+    """MSER's integer variation round(grow / area * 2^16), clamped, against
+    exact rational arithmetic."""
+    from fractions import Fraction
+    from compv_tpu.features.mser import _VAR_CLAMP, _variation_q
+    rs = np.random.default_rng(4)
+    area = np.concatenate([rs.integers(1, 2_000_000, 300),
+                           [1, 2, 3, 7, 100]]).astype(np.int32)
+    grow = np.concatenate([rs.integers(0, 3_000_000, 300),
+                           [0, 1, 3, 70000, 800001]]).astype(np.int32)
+    got = np.asarray(_variation_q(jnp.asarray(grow), jnp.asarray(area)))
+    want = [min(int(Fraction(int(g) * 65536, int(a)) + Fraction(1, 2)),
+                _VAR_CLAMP << 16) for g, a in zip(grow, area)]
+    np.testing.assert_array_equal(got, np.asarray(want))

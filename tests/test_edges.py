@@ -141,7 +141,7 @@ class TestHough:
 
 
 class TestHoughDense:
-    """Regression for VERDICT r1: dense maps must not lose votes silently
+    """Regression: dense maps must not lose votes silently
     (reference accumulates every edge pixel, houghsht.cxx:350)."""
 
     @pytest.fixture(scope="class")
@@ -154,47 +154,81 @@ class TestHoughDense:
         img[:, 200] = 255
         return img
 
-    def _oracle_acc(self, img, cfg):
-        """Full accumulation over EVERY edge pixel, same binning semantics
-        (f32 trig, round-half-even) as the device path."""
-        h, w = img.shape
-        ys, xs = np.nonzero(img)
-        xs = xs.astype(np.float32)
-        ys = ys.astype(np.float32)
-        theta_step = np.float32(np.deg2rad(cfg.theta_step_deg))
+    @staticmethod
+    def _oracle_acc(xs, ys, wts, h, w, cfg):
+        """np.add.at over EVERY vote. Bins come from float64 trig, except
+        that a vote whose rho sits within the fixed-point quantization
+        error of a half-bin takes the device's documented tie rule (the
+        int32 fixed-point formula, replayed in int64)."""
+        from compv_tpu.features.hough import (_fixed_point_shift,
+                                              _trig_tables)
+        theta_step = float(np.deg2rad(cfg.theta_step_deg))
         n_theta = int(np.round(np.pi / theta_step))
-        rho_max = np.float32(np.hypot(h, w))
+        rho_max = float(np.hypot(h, w))
         n_rho = int(np.ceil(2 * rho_max / cfg.rho)) + 1
-        thetas = (np.arange(n_theta, dtype=np.float32) * theta_step)
-        # trig from the device path: XLA f32 cos/sin differ from numpy by an
-        # ulp, which flips bins for boundary-sitting rho — the oracle checks
-        # the ACCUMULATION (every edge votes once), not trig rounding
-        cos_t = np.asarray(jnp.cos(jnp.asarray(thetas)))
-        sin_t = np.asarray(jnp.sin(jnp.asarray(thetas)))
-        rho = (cos_t[:, None] * xs[None, :]
-               + sin_t[:, None] * ys[None, :])
-        rbin = np.clip(np.round((rho + rho_max) / np.float32(cfg.rho)
-                                ).astype(np.int64), 0, n_rho - 1)
+        shift = _fixed_point_shift(h, w, rho_max, cfg.rho)
+        t = np.arange(n_theta) * theta_step
+        x = xs.astype(np.int64)[None, :]
+        y = ys.astype(np.int64)[None, :]
+        u = (np.cos(t)[:, None] * x + np.sin(t)[:, None] * y
+             + rho_max) / cfg.rho
+        rbin = np.floor(u + 0.5).astype(np.int64)
+        cos_q, sin_q = (v.astype(np.int64)[:, None]
+                        for v in _trig_tables(n_theta, theta_step, shift))
+        step_q = int(round(cfg.rho * 2.0 ** shift))
+        num = cos_q * x + sin_q * y + int(round(rho_max * 2.0 ** shift))
+        fixed = (num + step_q // 2) // step_q
+        near_half = np.abs(u - np.floor(u) - 0.5) < (w + h) * 2.0 ** -shift
+        assert (fixed[~near_half] == rbin[~near_half]).all()
+        rbin = np.clip(np.where(near_half, fixed, rbin), 0, n_rho - 1)
         acc = np.zeros((n_theta, n_rho), np.int64)
-        for a in range(n_theta):
-            acc[a] = np.bincount(rbin[a], minlength=n_rho)
+        np.add.at(acc, (np.broadcast_to(np.arange(n_theta)[:, None],
+                                        rbin.shape), rbin),
+                  np.broadcast_to(wts[None, :], rbin.shape))
         return acc
 
+    def _device_acc(self, xs, ys, wts, valid, h, w, cfg):
+        from compv_tpu.features.hough import _accumulate, _fixed_point_shift
+        theta_step = float(np.deg2rad(cfg.theta_step_deg))
+        n_theta = int(np.round(np.pi / theta_step))
+        rho_max = float(np.hypot(h, w))
+        acc, _ = _accumulate(jnp.asarray(xs, jnp.float32),
+                             jnp.asarray(ys, jnp.float32),
+                             jnp.asarray(valid), jnp.asarray(wts), n_theta,
+                             rho_max, cfg.rho, theta_step,
+                             _fixed_point_shift(h, w, rho_max, cfg.rho))
+        return np.asarray(acc)
+
     def test_dense_accumulator_exact(self, dense_map):
-        from compv_tpu.features.hough import (_accumulate, _edge_list)
+        from compv_tpu.features.hough import _edge_list
         cfg = HoughShtConfig()
         h, w = dense_map.shape
         n_edges = int((dense_map > 0).sum())
         assert n_edges > 30000  # the r1 failure regime
-        theta_step = float(np.deg2rad(cfg.theta_step_deg))
-        n_theta = int(np.round(np.pi / theta_step))
-        rho_max = float(np.hypot(h, w))
         x, y, valid = _edge_list(jnp.asarray(dense_map), cfg.max_edge_points)
         assert int(np.asarray(valid).sum()) == n_edges  # nothing dropped
-        acc, _ = _accumulate(x, y, valid, jnp.ones_like(x), n_theta,
-                             rho_max, cfg.rho, theta_step)
-        oracle = self._oracle_acc(dense_map, cfg)
-        np.testing.assert_array_equal(np.asarray(acc), oracle)
+        acc = self._device_acc(np.asarray(x), np.asarray(y),
+                               np.ones(x.shape, np.int32), np.asarray(valid),
+                               h, w, cfg)
+        ys, xs = np.nonzero(dense_map)
+        oracle = self._oracle_acc(xs, ys, np.ones(xs.shape, np.int64), h, w,
+                                  cfg)
+        np.testing.assert_array_equal(acc, oracle)
+
+    @pytest.mark.parametrize("rho", [1.0, 0.5])
+    def test_weighted_accumulator_exact(self, rho):
+        """Integer weights (0 for padded slots) against np.add.at."""
+        rs = np.random.default_rng(17)
+        h, w, n = 300, 420, 5000
+        xs = rs.integers(0, w, n)
+        ys = rs.integers(0, h, n)
+        wts = rs.integers(0, 6, n)
+        valid = rs.uniform(size=n) < 0.9
+        cfg = HoughShtConfig(rho=rho)
+        acc = self._device_acc(xs, ys, wts.astype(np.int32), valid, h, w,
+                               cfg)
+        oracle = self._oracle_acc(xs, ys, np.where(valid, wts, 0), h, w, cfg)
+        np.testing.assert_array_equal(acc, oracle)
 
     def test_dense_lines_found(self, dense_map):
         from compv_tpu.features.hough import hough_sht_stats

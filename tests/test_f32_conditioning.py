@@ -1,10 +1,8 @@
-"""f32 conditioning stress tests for the estimation core (r3 VERDICT
-task 9 / SURVEY §7 hard-part 4: "validate f32 + conditioning against the
-accuracy bound").
+"""f32 conditioning stress tests for the estimation core.
 
 The reference solves homography/calibration in f64
 (core/calib/compv_core_calib_homography.cxx:60 instantiates the double
-path); the TPU framework runs f32 end-to-end. These tests encode WHERE
+path); this framework runs f32 end-to-end. These tests encode WHERE
 that is safe and WHY:
 
   * Hartley normalization is the load-bearing step. The DLT normal matrix

@@ -127,3 +127,59 @@ class TestDetect:
         kp_nms = fast_detect(jnp.asarray(corner_img), FastConfig(nms=True, max_features=2000))
         kp_all = fast_detect(jnp.asarray(corner_img), FastConfig(nms=False, max_features=2000))
         assert int(kp_all.count()) >= int(kp_nms.count())
+
+
+def _oracle_nms(s: np.ndarray) -> np.ndarray:
+    """Scalar 3x3 NMS (suppress unless strictly above all 8 neighbours),
+    interior [3, dim-3) only."""
+    out = np.zeros_like(s)
+    h, w = s.shape
+    for y in range(3, h - 3):
+        for x in range(3, w - 3):
+            v = s[y, x]
+            win = s[y - 1:y + 2, x - 1:x + 2].astype(int).ravel()
+            if v > 0 and max(np.delete(win, 4)) < v:
+                out[y, x] = v
+    return out
+
+
+def _production(img, threshold, n, nms):
+    """The detectors' own path: f32 strengths, optional f32 NMS."""
+    from compv_tpu.features.fast import _nms_f32, _strengths_f32
+    s = _strengths_f32(jnp.asarray(img), threshold, n)
+    if nms:
+        s = _nms_f32(s)
+    return np.asarray(s)
+
+
+class TestProductionPath:
+    """`_strengths_f32` / `_nms_f32` (what fast_detect and ORB run) against
+    the scalar oracle."""
+
+    def test_odd_size(self):
+        img = np.random.default_rng(3).integers(0, 255, (97, 131),
+                                                dtype=np.uint8)
+        want = _oracle_nms(oracle_strengths(img, 20, 9))
+        np.testing.assert_array_equal(_production(img, 20, 9, True), want)
+
+    @pytest.mark.parametrize("spec", ["fast9_thr20_nms1", "fast9_thr20_nms0",
+                                      "fast12_thr40_nms1", "fast9_thr40_nms1"])
+    def test_golden_specs(self, spec):
+        """The golden FAST specs on the golden image: the production maps
+        over the full image, checked against the oracle on a 120x160
+        window over the checkerboard's top-left corner, where the FAST-9
+        specs find corners (the oracle is scalar Python; the window keeps
+        it to about a second)."""
+        from tests.fixtures import make_test_image
+        n = int(spec[4: spec.index("_")])
+        thr = int(spec.split("thr")[1].split("_")[0])
+        nms = spec.endswith("nms1")
+        img = make_test_image()
+        y0, x0 = 70, 100
+        win = img[y0:y0 + 120, x0:x0 + 160]
+        want = oracle_strengths(win, thr, n)
+        if nms:
+            want = _oracle_nms(want)
+        got = _production(img, thr, n, nms)[y0:y0 + 120, x0:x0 + 160]
+        m = 4 if nms else 3          # the oracle's own window border
+        np.testing.assert_array_equal(got[m:-m, m:-m], want[m:-m, m:-m])

@@ -145,7 +145,7 @@ class TestGenericRansac:
 
 
 class TestSamplingHygiene:
-    """VERDICT r1 item 7: sampling without replacement + colinearity reject
+    """Sampling without replacement + colinearity reject
     (reference rejects both, calib_homography.cxx:188-246)."""
 
     def test_samples_always_distinct(self):

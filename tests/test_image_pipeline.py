@@ -95,6 +95,31 @@ class TestScale:
                  + f[y1, x0] * (1 - tx) * ty + f[y1, x1] * tx * ty)
             assert abs(float(out[i, j]) - v) <= 1.0
 
+    @pytest.mark.parametrize("oh,ow", [(199, 263), (97, 131), (512, 700)])
+    def test_bilinear_u8_fixed_point(self, test_image, oh, ow):
+        """u8 scaling is exact Q11 fixed point: half-pixel centres, weights
+        round(frac * 2048), products summed in integers, rounded half up —
+        the same bytes on every backend."""
+        h, w = test_image.shape
+        f = test_image.astype(np.int64)
+
+        def taps(n_out, n_in):
+            x = np.clip((np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5,
+                        0, n_in - 1)
+            i0 = np.floor(x).astype(int)
+            return i0, np.minimum(i0 + 1, n_in - 1), \
+                np.round((x - i0) * 2048).astype(np.int64)
+
+        y0, y1, wy = taps(oh, h)
+        x0, x1, wx = taps(ow, w)
+        wy, wx = wy[:, None], wx[None, :]
+        top = f[y0][:, x0] * (2048 - wx) + f[y0][:, x1] * wx
+        bot = f[y1][:, x0] * (2048 - wx) + f[y1][:, x1] * wx
+        want = (top * (2048 - wy) + bot * wy + (1 << 21)) >> 22
+        got = np.asarray(image.scale_bilinear(jnp.asarray(test_image),
+                                              oh, ow))
+        np.testing.assert_array_equal(got, want)
+
     def test_bicubic_close_to_bilinear_on_smooth(self):
         yy, xx = np.mgrid[0:64, 0:64].astype(np.float32)
         img = (xx + yy).astype(np.float32)

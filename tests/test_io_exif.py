@@ -37,11 +37,11 @@ def _build_tiff():
 
     data = b""
     entries0 = []
-    make = b"TPUCam\0"
+    make = b"AcmeCam\0"
     e = entry(0x010F, 2, len(make), make, data, data_base)
     e, data = e if isinstance(e, tuple) else (e, data)
     entries0.append(e)
-    model = b"MXU-1\0"
+    model = b"Model-1\0"
     e = entry(0x0110, 2, len(model), model, data, data_base)
     e, data = e if isinstance(e, tuple) else (e, data)
     entries0.append(e)
@@ -87,8 +87,8 @@ def _build_tiff():
 
 def test_parse_tiff_fields():
     ex = parse_tiff(_build_tiff())
-    assert ex.make == "TPUCam"
-    assert ex.model == "MXU-1"
+    assert ex.make == "AcmeCam"
+    assert ex.model == "Model-1"
     assert ex.orientation == 6
     assert ex.iso == 200
     assert ex.pixel_width == 1282 and ex.pixel_height == 720
@@ -110,7 +110,7 @@ def test_read_exif_from_jpeg(tmp_path):
     p = tmp_path / "x.jpg"
     p.write_bytes(jpeg)
     ex = read_exif(str(p))
-    assert ex.model == "MXU-1" and ex.orientation == 6
+    assert ex.model == "Model-1" and ex.orientation == 6
 
 
 def test_no_exif_returns_defaults(tmp_path):

@@ -1,4 +1,4 @@
-"""KHT acceptance test (VERDICT r2 task 7).
+"""KHT acceptance test.
 
 The product KHT (features/hough.py:_hough_kht_impl) is a dense
 orientation-weighted reformulation, not a port of the reference's

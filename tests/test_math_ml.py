@@ -173,7 +173,7 @@ class TestOps:
         assert float(cmath.add(jnp.float32(1.5), jnp.float32(2.25))) == 3.75
 
     def test_saturating_16bit_ops(self):
-        # ADVICE r3: uint16*uint16 must saturate to 65535, not wrap through
+        # uint16*uint16 must saturate to 65535, not wrap through
         # an int32 accumulator to 0
         a = jnp.asarray([60000, 40000, 3], jnp.uint16)
         b = jnp.asarray([60000, 40000, 4], jnp.uint16)

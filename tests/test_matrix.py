@@ -1,17 +1,18 @@
-"""Systematic determinism matrix (VERDICT r2 task 8).
+"""Systematic determinism matrix.
 
 The reference re-runs every unittest across {asm} x {intrinsics} x
-{fixed-point} x {threads} x {cpu-flags} (unittests/main.cxx:82-160). The
-TPU translation of that variant sweep, applied to the LOCKED golden
-values (goldens/goldens.json) rather than ad-hoc pairs:
+{fixed-point} x {threads} x {cpu-flags} (unittests/main.cxx:82-160). This
+repository's translation of that variant sweep, applied to the LOCKED
+golden values (goldens/goldens.json) rather than ad-hoc pairs:
 
   axis 1 — devices: replicated single-device vs row-sharded over the
            8-device virtual mesh. Sharding must not change a single bit
            of any golden (XLA inserts halos/collectives; results must be
            placement-invariant).
-  axis 2 — kernel variant: XLA lowering vs the Pallas twin (interpret
-           mode on CPU) wherever a twin exists (FAST strengths/NMS).
-  axis 3 — precision: the bf16-MXU formulations that CLAIM exactness
+  axis 2 — kernel variant: there is one FAST kernel, the production XLA
+           path; tests/test_fast.py checks it against the scalar oracle
+           on the golden image for the FAST golden specs.
+  axis 3 — precision: the bf16 matmul formulations that CLAIM exactness
            (Hamming-as-matmul, nibble-histogram) vs integer oracles.
 
 Every golden key must be claimed by at least one axis (completeness
@@ -115,28 +116,7 @@ class TestShardedGoldens:
             f"{spec} changed under sharding"
 
 
-# ---- axis 2: Pallas twin (interpret) must reproduce the golden path ----
-
-class TestPallasTwinGoldens:
-    @pytest.mark.parametrize("spec", ["fast9_thr20_nms1", "fast9_thr20_nms0",
-                                      "fast12_thr40_nms1", "fast9_thr40_nms1"])
-    def test_fast_strengths_twin(self, inputs, spec):
-        """The Pallas FAST kernel must emit the identical strengths/NMS map
-        on the golden image — the map the golden tuples derive from."""
-        from compv_tpu.features.fast import fast_nms, fast_strengths
-        from compv_tpu.ops.pallas.fast_kernel import fast_strengths_nms_pallas
-        n = int(spec[4: spec.index("_")])
-        thr = int(spec.split("thr")[1].split("_")[0])
-        nms = spec.endswith("nms1")
-        g = jnp.asarray(inputs["gray"])
-        want = fast_strengths(g, thr, n)
-        if nms:
-            want = fast_nms(want)
-        got = fast_strengths_nms_pallas(g, thr, n, nms=nms, interpret=True)
-        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
-
-
-# ---- axis 3: bf16-MXU formulations vs integer oracles ------------------
+# ---- axis 3: bf16 matmul formulations vs integer oracles ---------------
 
 class TestPrecisionExactness:
     def test_hamming_bf16_exact(self):
@@ -162,7 +142,7 @@ class TestPrecisionExactness:
 
 # ---- axis 1 (cont.): the irregular kernels most likely to diverge under
 # resharding — CCL labels/features, Hough SHT peaks, MSER region sets and
-# one BA step (r5 VERDICT task 5). Integer-exact pipelines must reproduce
+# one BA step. Integer-exact pipelines must reproduce
 # their goldens bit-for-bit from row-sharded inputs; BA (f32 psum) must be
 # bitwise reproducible at FIXED placement and within f32-reassociation
 # tolerance across placements.

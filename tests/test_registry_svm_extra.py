@@ -58,8 +58,7 @@ class TestSvmExtras:
 
 
 class TestSvr:
-    """eps-SVR vs the sklearn oracle (r5 VERDICT task 7 — libsvm scope:
-    EPSILON_SVR, compv_base_ml_svm.h:78-104)."""
+    """eps-SVR vs the sklearn oracle."""
 
     def _data(self, n=120, seed=3):
         rs = np.random.default_rng(seed)

@@ -1,4 +1,4 @@
-"""Paeth 3-shear rotation (gather-free TPU rotation) tests."""
+"""Paeth 3-shear rotation (gather-free rotation) tests."""
 import jax
 import jax.numpy as jnp
 import numpy as np

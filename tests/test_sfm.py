@@ -91,12 +91,12 @@ def sfm_run():
 class TestSfmEndToEnd:
     def test_ate_vs_golden(self, sfm_run):
         """The cross-round lock: ATE must not regress 2x vs the checked-in
-        golden (VERDICT r1 item 2)."""
+        golden."""
         res, ate, gt = sfm_run
         with open(GOLDEN_PATH) as f:
             g = json.load(f)
         assert ate <= 2.0 * g["ate_rmse"], (ate, g["ate_rmse"])
-        # absolute quality bar (VERDICT r2 task 6a): ATE < 3% of the
+        # absolute quality bar: ATE < 3% of the
         # trajectory span (sub-pixel keypoints brought it to ~0.6%)
         span = float(np.linalg.norm(gt[-1] - gt[0]))
         assert ate < 0.03 * span
@@ -125,7 +125,7 @@ class TestSfmEndToEnd:
             assert st["pnp_inliers"] >= 20, res.frame_stats
 
     def test_long_sequence_golden(self):
-        """32-frame 480p golden with RPE (VERDICT r2 task 6b). ~10 min on
+        """32-frame 480p golden with RPE. ~10 min on
         the 2-core CPU runner — the heaviest test in the slow tier; the
         locked values live in goldens/sfm_long.json (regenerate with
         scripts/make_goldens.py --sfm-long)."""
@@ -148,7 +148,7 @@ class TestSfmEndToEnd:
 
     @pytest.mark.slow
     def test_128_frame_windowed_schur_golden(self, tmp_path):
-        """r5 VERDICT task 4: sequence-scale run — 128 frames @ 480p with
+        """Sequence-scale run — 128 frames @ 480p with
         Schur-solver BA, 8-frame sliding-window local BA (frozen past
         cameras anchor the gauge), periodic checkpoints and landmark
         capacity churn. Locked values live in goldens/sfm_128.json
@@ -180,7 +180,7 @@ class TestSfmEndToEnd:
         # honest standing (r5): the locked golden is 1.8% of span — the
         # 8-frame window accumulates drift the 12-iteration final global
         # BA does not fully undo on this densely-sampled 128-frame arc
-        # (the VERDICT bar was 1%; the unanchored-window bug this run
+        # (the target bar is 1%; the unanchored-window bug this run
         # caught scored 27%). Next rung: periodic full-BA keyframes.
         assert 100.0 * ate / span <= 2.5
         # the periodic checkpoint must exist and be resumable
@@ -197,7 +197,7 @@ class TestSfmEndToEnd:
 
 
 class TestCheckpointResume:
-    """SURVEY §5 failure/elastic recovery (r3 VERDICT task 6): a mid-SfM
+    """SURVEY §5 failure/elastic recovery: a mid-SfM
     checkpoint must reload onto a DIFFERENT mesh size and resume to the
     same quality. Fast tier: tiny 6-frame sequence."""
 

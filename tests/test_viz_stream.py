@@ -81,7 +81,7 @@ class TestMjpegServer:
 
     def test_run_live_stops_on_camera_exhaustion(self):
         """A finite camera (n_frames) must end run_live even with no
-        seconds/max_frames bound (r4 ADVICE: it used to block forever)."""
+        seconds/max_frames bound."""
         import time as _time
         cam = SyntheticCamera(width=32, height=24, fps=200.0, n_frames=4)
         with MjpegServer(port=0) as srv:

@@ -1,4 +1,4 @@
-"""Video writer + bitmap text rendering (VERDICT r2 task 9).
+"""Video writer + bitmap text rendering.
 
 Reference parity: core/video/compv_core_video_writer_ffmpeg.cxx (writer),
 gl/compv_gl_freetype.cxx (text). Here: pipe-ffmpeg writer gated on the
